@@ -117,6 +117,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "smoke: fast end-to-end pipeline check "
         "(scripts/check_observability.py; `pytest -m smoke`)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one "
+        "(`pytest -m cuda tests/test_torch_cuda.py` on the card)")
 
 
 def pytest_collection_modifyitems(config, items):
