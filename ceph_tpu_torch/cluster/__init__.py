@@ -1,1 +1,2 @@
-"""Cluster layer: the EC data-plane engine and the device staging tier."""
+"""Cluster layer: the OSDMap, the cluster simulator and its host
+substrate, the EC data-plane engine and the device staging tier."""

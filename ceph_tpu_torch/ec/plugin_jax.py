@@ -9,9 +9,13 @@ matrices (``parity``, ``decode_matrix``) are the reference's.
     (jerasure_schedule_encode packets,
     src/erasure-code/jerasure/ErasureCodeJerasure.cc:162,274).  Every
     stripe operation is one call of kernel K1, ops/xor_kernel.py.
-  * ``layout=bytes`` runs the byte-symbol GF(2^8) product of kernel K2
-    (``ceph_tpu/ops/gf_pallas.py``), which a later slice of the port
-    carries; until then the codec refuses the layout at init.
+  * ``layout=bytes`` (the default when a profile names none): classic
+    byte-symbol layout — chunk byte t is one GF(2^8) symbol; parity bytes
+    match jerasure/ISA-L matrix techniques.  Every stripe operation is
+    one call of kernel K2, ops/gf_pallas.py, on a CUDA tensor, and its
+    plain version (ops/gf_jax.py) on a CPU tensor.  ``ec_kernel=xla``
+    names the plain version: the codec refuses it for a CUDA tensor,
+    because the plain version never runs on the card.
 
 Data follows its tensor: the device entry points compute on the device
 of the tensor they are given; NumPy input goes to the codec's device
@@ -24,7 +28,7 @@ import torch
 
 from .. import resolve_device
 from ..common.perf_counters import perf as _perf
-from ..ops import gf
+from ..ops import gf, gf_jax, gf_pallas
 from .interface import ErasureCodeError, ErasureCodeProfile
 from .matrix_codec import MatrixCodec
 
@@ -71,11 +75,6 @@ class ErasureCodeJax(MatrixCodec):
         layout = profile.get("layout", "bytes")
         if layout not in LAYOUTS:
             raise ErasureCodeError(f"layout={layout!r} not in {LAYOUTS}")
-        if layout == "bytes":
-            raise ErasureCodeError(
-                "layout=bytes needs kernel K2 (the byte-symbol GF(2^8) "
-                "product, ceph_tpu/ops/gf_pallas.py:_kernel), which a later "
-                "slice of the port carries; use layout=bitsliced")
         self.layout = layout
         self.set_matrix(parity, 8)
         self._pc = _perf("ec.jax")       # cached group handle (hot path)
@@ -102,6 +101,22 @@ class ErasureCodeJax(MatrixCodec):
     def encode_chunks_batch(self, data: np.ndarray) -> np.ndarray:
         return _host(self.encode_chunks_device(data))
 
+    def _matmul(self, matrix, data: torch.Tensor) -> torch.Tensor:
+        """Byte-layout product: K2 for a CUDA tensor, the plain version
+        for a CPU tensor (``ec_kernel``: auto and pallas both mean the
+        wrapper's dispatch; xla asks for the plain version, which exists
+        only on the CPU)."""
+        from ..common.options import config
+        mode = config().get("ec_kernel")
+        if mode == "xla":
+            if data.device.type != "cpu":
+                raise ErasureCodeError(
+                    "ec_kernel=xla names the plain GF(2^8) product, which "
+                    "never runs on the card; use ec_kernel=auto")
+            return gf_jax.gf8_matmul(matrix, data)
+        return gf_pallas.bitplane_matmul(gf.gf8_bitmatrix(matrix),
+                                         data.contiguous())
+
     def _plane_matmul(self, gf_matrix, data: torch.Tensor) -> torch.Tensor:
         """[..., n, L] uint8 chunks -> [..., rows, L] through K1
         (reshape-only layout moves)."""
@@ -126,7 +141,9 @@ class ErasureCodeJax(MatrixCodec):
         pc = self._pc
         pc.inc("encode_dispatches")
         pc.inc("encode_bytes", int(data.numel()))
-        return self._plane_matmul(self.parity, data)
+        if self.layout == "bitsliced":
+            return self._plane_matmul(self.parity, data)
+        return self._matmul(self.parity, data)
 
     # ------------------------------------------------ word-domain (i32) ---
     # The bitsliced at-rest format IS int32 plane words (32 GF(2) lanes
@@ -138,6 +155,9 @@ class ErasureCodeJax(MatrixCodec):
     def encode_words_device(self, words) -> torch.Tensor:
         """[.., k, W] int32 -> [.., m, W] int32, on the device."""
         from ..ops import xor_kernel
+        if self.layout != "bitsliced":
+            raise ErasureCodeError(
+                "word-domain encode requires layout=bitsliced")
         words = self._tensor(words, torch.int32)
         if words.shape[-2] != self.k:
             raise ErasureCodeError(
@@ -163,6 +183,9 @@ class ErasureCodeJax(MatrixCodec):
         [.., n_erased, W] int32 on the device (the recovery matrix is a
         mask operand: new signatures reuse the kernel)."""
         from ..ops import xor_kernel
+        if self.layout != "bitsliced":
+            raise ErasureCodeError(
+                "word-domain decode requires layout=bitsliced")
         words = self._tensor(words, torch.int32)
         erased = sorted(erased_ids)
         if not erased:
@@ -220,7 +243,9 @@ class ErasureCodeJax(MatrixCodec):
         pc.set("decode_cache_hits", self._cache.hits)
         pc.set("decode_cache_misses", self._cache.misses)
         R, rows = self._select_rows(available_ids, erased, chunks)
-        return self._plane_matmul(R, rows)
+        if self.layout == "bitsliced":
+            return self._plane_matmul(R, rows)
+        return self._matmul(R, rows)
 
 
 def _factory(profile: ErasureCodeProfile, device=None):

@@ -144,7 +144,10 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    build_all([name])
+    from ..common.jit_profile import compile_event
+    # a build is the port's compile: a jit.compile span + jit.compiles
+    with compile_event("kernel.build", name, not _target(name).exists()):
+        build_all([name])
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_target(name)))

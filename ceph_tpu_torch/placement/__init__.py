@@ -1,1 +1,2 @@
-"""CRUSH placement: the map model (the mappers come with a later slice)."""
+"""CRUSH placement: the map model, the builder, the scalar mapper and the
+batched mappers on the card (xla_mapper, fast_mapper)."""

@@ -7,34 +7,53 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-  1. build every kernel of ``ceph_tpu_torch/csrc`` with nvcc for sm_90a
-     (one nvcc per source, started together) and print ptxas's registers,
-     shared memory and spills;
+  1. build every kernel of ``ceph_tpu_torch/csrc`` (K1 ``xor_matmul.cu``,
+     K2 ``gf_bitplane.cu``) with nvcc for sm_90a (one nvcc per source,
+     started together) and print ptxas's registers, shared memory and
+     spills;
   2. hold each kernel bit-identical to its plain PyTorch version on the
      card at the main path's shapes (K1: RS(8,3) encode, a 3-erasure
-     decode, a per-stripe-signature rebuild, a ragged word count);
-  3. drive the slice end to end through the port's entry points: an
-     RS(8,3) layout=bitsliced pool from the port's codec registry, 1 MiB
-     stripes (stripe_unit 128 KiB), 128 objects of 4 MiB put in one
-     ingest batch through ECBackend onto 16 OSD device caches, 3 OSDs
-     killed, every object read back (degraded reads decode in signature
-     groups) and compared with the payload on the card, every lost shard
-     rebuilt with one mask per stripe and compared with the original;
-     K1's launch count over this phase must equal the path's dispatches,
-     and no plain version may run on it;
-  4. time K1 (CUDA events over many launches after a warm-up) beside its
-     bound and its plain version, and the host wall time of each phase.
+     decode, a per-stripe-signature rebuild, a ragged word count; K2: the
+     per-object put [4, 8, 131072], the batched encode [128, 8, 131072],
+     a 3-erasure decode and a ragged L = 131071);
+  3. the EC data path through ECBackend: an RS(8,3) layout=bitsliced pool,
+     1 MiB stripes, 128 objects of 4 MiB put in one ingest batch onto 16
+     OSD device caches, 3 OSDs killed, every object read back (degraded
+     reads decode in signature groups) and every lost shard rebuilt with
+     one mask per stripe, all compared on the card;
+  4. the placement sweep (BASELINE configs #3 and #5): a 1,000-host x
+     10-OSD straw2 map, CHOOSELEAF_FIRSTN host, 3 replicas;
+     ``OSDMap.map_pgs_batch`` over 2^20 PGs, then 100 OSDs out and the
+     remap through both ``map_pgs_batch`` and ``map_batch_delta``; every
+     lane of both sweeps held against the native C++ mapper;
+  5. the cluster step: a 32-host x 4-OSD map (TAKE root, CHOOSELEAF_INDEP
+     host, EMIT), one ClusterSim per RS(8,3) pool (pg_num 256,
+     stripe_unit 128 KiB): the default bitsliced pool (HBM-staged, K1) and
+     a layout=bytes pool (host tier, K2), one after the other: put_many of
+     64 x 4 MiB objects, 3 OSDs of the first object's up set killed, every
+     object read, the three marked out, recover_all, every object read
+     again, map_pgs_batch before and after;
+  6. time each kernel beside its bound and its plain version: device time
+     from 50 launches captured in one CUDA graph and replayed between CUDA
+     events, and the wrapper's call time from 50 back-to-back calls
+     between CUDA events (host work included).
 
-Earlier lines print the card (``nvidia-smi --query-gpu=name,power.limit``),
-the numbers as JSON, and the ``{"kernels": [...]}`` line; the last line is
+Around each path of phases 3-5 the kernels' launch counts are set to 0
+just before and read just after: K1's must equal the bitsliced paths'
+dispatches, K2's the byte pool's ``ec.jax`` encode + decode dispatches,
+and no plain version may run.  Earlier lines print the card
+(``nvidia-smi --query-gpu=name,power.limit``), the numbers as JSON, and
+the ``{"kernels": [...]}`` line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,7 +63,8 @@ from ceph_tpu_torch.cluster.device_store import DeviceShardCache, \
     assemble_object
 from ceph_tpu_torch.cluster.ec_backend import ECBackend, ObjectGeom, ShardIO
 from ceph_tpu_torch.ec import instance
-from ceph_tpu_torch.ops import _build, gf, gf2, xor_kernel
+from ceph_tpu_torch.common.perf_counters import perf
+from ceph_tpu_torch.ops import _build, gf, gf2, gf_jax, gf_pallas, xor_kernel
 
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -52,6 +72,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # 1.98 GHz clock the data sheet's 67 TFLOP/s FP32 implies
 # (132 x 128 x 2 x 1.98e9); one LOP3 per mask-AND-XOR step
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# shared-memory table lookups/s: one 32-lane wavefront per clock per SM
+# (32 banks x 4 B = 128 B/clock/SM, H100 white paper) at the same clock
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
 
 K, M = 8, 3
 N_OSDS = 16
@@ -96,6 +119,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean DEVICE milliseconds of ``fn`` (a kernel wrapper call): ``iters``
+    calls captured in one CUDA graph and replayed between two CUDA
+    events, so the wrapper's host time between launches is not counted
+    (back-to-back calls of a wrapper whose host work outlasts its kernel
+    measure the host instead; ``cuda_ms`` reports that time)."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
 def k1_bound(B: int, Bm: int, R: int, C: int, W: int):
     """(bound_ms, bound_by, bytes, ops) of one K1 call: every input read
     once, every output written once; one LOP3 per mask-AND-XOR step."""
@@ -103,6 +150,19 @@ def k1_bound(B: int, Bm: int, R: int, C: int, W: int):
     ops = B * R * C * W
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def k2_bound(B: int, k: int, m: int, L: int):
+    """(bound_ms, bound_by, bytes, lookups) of one K2 call: every data
+    byte read once, every output byte written once, the [8m, 8k] int8
+    bit-matrix read once; one shared-memory table lookup per GF(2^8)
+    byte product (B*m*k*L)."""
+    nbytes = B * k * L + B * m * L + 64 * m * k
+    ops = B * m * k * L
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SMEM_LOOKUPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
@@ -214,6 +274,50 @@ def kernel_checks(device, shapes) -> dict:
                   masks.shape[-2], masks.shape[-1])[0]})
         if err != 0 or not torch.equal(got, want):
             fail(f"K1 differs from its plain version at {name}")
+    return errs
+
+
+def k2_shapes(device, gen):
+    """K2's main-path shapes: the byte pool's per-object put [4, 8, 131072]
+    (a 4 MiB object is 4 stripes of 8 x 128 KiB), the batched encode
+    [128, 8, 131072], a 3-erasure decode of one object and a ragged
+    L = 131071.  {name: (bitmat, data)}."""
+    enc = gf.gf8_bitmatrix(gf.vandermonde_parity(K, M))
+    G = gf.generator_matrix(gf.vandermonde_parity(K, M))
+    erased = [1, 4, 9]
+    avail = [c for c in range(K + M) if c not in erased][:K]
+    dec = gf.gf8_bitmatrix(gf.gf_matmul(G[erased],
+                                        gf.gf_gaussian_inverse(G[avail])))
+
+    def data(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device=device, generator=gen)
+
+    return {"put": (enc, data((4, K, 131072))),
+            "encode": (enc, data((128, K, 131072))),
+            "decode": (dec, data((4, K, 131072))),
+            "ragged": (enc, data((4, K, 131071)))}
+
+
+def k2_checks(device, shapes) -> dict:
+    """K2 against its plain version on the card at each shape; fails on
+    any difference.  Returns {name: max_abs_err}."""
+    errs = {}
+    for name, (bitmat, data) in shapes.items():
+        got = gf_pallas.bitplane_matmul(bitmat, data)
+        want = gf_jax.bitplane_matmul(
+            torch.as_tensor(bitmat, device=device), data)
+        sync(device)
+        err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+        errs[name] = err
+        m, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+        emit({"phase": "kernel_check", "kernel": "gf_bitplane",
+              "shape": name, "bitmat": list(bitmat.shape),
+              "data": list(data.shape), "out": list(got.shape),
+              "max_abs_err": err,
+              "dynamic_smem_bytes": gf_pallas.smem_bytes(m, k)[0]})
+        if err != 0 or not torch.equal(got, want):
+            fail(f"K2 differs from its plain version at {name}")
     return errs
 
 
@@ -339,12 +443,290 @@ def run_slice(device, gen, n_objects: int, obj_bytes: int,
             "put_s": t_put, "read_s": t_read, "rebuild_s": t_rebuild}
 
 
+def native_rows(nm, xs, result_max: int, weights) -> np.ndarray:
+    """The native C++ mapper over ``xs`` on every CPU core (each ctypes
+    call releases the GIL; the mapper keeps no shared state)."""
+    n = os.cpu_count() or 1
+    parts = np.array_split(np.asarray(xs), n)
+    with ThreadPoolExecutor(n) as pool:
+        outs = list(pool.map(
+            lambda p: nm.map_batch(0, p, result_max, weights), parts))
+    return np.concatenate(outs)
+
+
+def compact(raw: np.ndarray, none: int) -> np.ndarray:
+    """A replicated pool's up rows: NONE holes moved to the end."""
+    order = np.argsort(raw == none, axis=1, kind="stable")
+    return np.take_along_axis(raw, order, axis=1)
+
+
+def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
+    """BASELINE configs #3 and #5 on the port: map every PG of a 2^20-PG
+    pool on the 10,000-OSD map, mark ``n_out`` OSDs out, remap through
+    map_pgs_batch and map_batch_delta; every lane against the native
+    mapper."""
+    from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_REPLICATED
+    from ceph_tpu_torch.native_bridge import NativeMapper
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        ITEM_NONE, RULE_CHOOSELEAF_FIRSTN, RULE_EMIT, RULE_TAKE, Rule)
+    cmap, root = build_flat_cluster(n_hosts=1000, osds_per_host=10)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_FIRSTN, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    om = OSDMap(cmap, device=device)
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name="sweep", type=POOL_REPLICATED, size=3,
+                       pg_num=n_pgs, crush_rule=0))
+    pool = om.pools[1]
+    pps = pool.raw_pg_to_pps_batch(np.arange(n_pgs))
+    nm = NativeMapper(cmap)
+    pc = perf("crush.mapper")
+
+    def fallback():
+        return pc.dump().get("fallback_lanes", 0)
+
+    torch.cuda.reset_peak_memory_stats()
+    f0 = fallback()
+    t0 = time.perf_counter()
+    up0, _ = om.map_pgs_batch(1)
+    sync(device)
+    t_full0 = time.perf_counter() - t0
+    inc0 = fallback() - f0
+    w0 = om.osd_weight[:cmap.max_devices].copy()
+    t0 = time.perf_counter()
+    raw0 = native_rows(nm, pps, 3, w0)
+    t_native0 = time.perf_counter() - t0
+    if not np.array_equal(up0, compact(raw0, ITEM_NONE)):
+        fail("placement: the 2^20-PG sweep differs from the native mapper")
+
+    outs = np.random.default_rng(SEED).choice(cmap.max_devices, n_out,
+                                              replace=False)
+    for o in outs:
+        om.mark_out(int(o))
+    w1 = om.osd_weight[:cmap.max_devices].copy()
+    f0 = fallback()
+    t0 = time.perf_counter()
+    up1, _ = om.map_pgs_batch(1)
+    sync(device)
+    t_full1 = time.perf_counter() - t0
+    inc1 = fallback() - f0
+    # firstn rows fill left to right, so with every OSD up the up rows
+    # ARE the raw CRUSH rows (checked against the native mapper above)
+    f0 = fallback()
+    t0 = time.perf_counter()
+    delta = om._batched_mapper().map_batch_delta(0, pps, 3, w0, w1, up0)
+    t_delta = time.perf_counter() - t0
+    inc_delta = fallback() - f0
+    t0 = time.perf_counter()
+    raw1 = native_rows(nm, pps, 3, w1)
+    t_native1 = time.perf_counter() - t0
+    if not np.array_equal(up1, compact(raw1, ITEM_NONE)):
+        fail("placement: the remap sweep differs from the native mapper")
+    if not np.array_equal(delta, raw1):
+        fail("placement: map_batch_delta differs from the native mapper")
+    if np.isin(up1, outs).any():
+        fail("placement: an out OSD kept a PG")
+    moved = int((up1 != up0).any(axis=1).sum())
+    return {"osds": cmap.max_devices, "hosts": 1000, "pgs": n_pgs,
+            "replicas": 3, "out_osds": n_out,
+            "map_pgs_batch_s": t_full0, "remap_map_pgs_batch_s": t_full1,
+            "remap_delta_s": t_delta,
+            "delta_affected_lanes": int(np.isin(up0, outs).any(axis=1).sum()),
+            "pgs_moved": moved,
+            "incomplete_lanes": inc0, "remap_incomplete_lanes": inc1,
+            "delta_incomplete_lanes": inc_delta,
+            "incomplete_share": inc0 / n_pgs,
+            "native_lanes_checked": 3 * n_pgs,
+            "native_s": t_native0 + t_native1,
+            "native_threads": os.cpu_count(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def counters():
+    """(K1 launches, K2 launches, K1 plain runs, K2 plain runs, ec.jax
+    encode + decode dispatches, the rebuild sweep's K1 dispatches)."""
+    d = perf("ec.jax").dump()
+    return (xor_kernel.launches, gf_pallas.launches, xor_kernel.plain_runs,
+            gf_pallas.plain_runs,
+            d.get("encode_dispatches", 0) + d.get("decode_dispatches", 0),
+            perf("cluster.recovery").dump().get("rebuild_dispatches", 0))
+
+
+def cluster_step(device, layout: str, n_objects: int = 64,
+                 obj_bytes: int = 4 << 20) -> dict:
+    """One RS(8,3) pool's cluster step on the card (phase 5).  Returns the
+    phase wall times, the recovery stats and the kernel accounting read
+    around this pool's phases alone."""
+    from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_ERASURE
+    from ceph_tpu_torch.cluster.simulator import ClusterSim
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        ITEM_NONE, RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE, Rule)
+    cmap, root = build_flat_cluster(n_hosts=32, osds_per_host=4)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_INDEP, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    om = OSDMap(cmap, device=device)
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name=f"ec-{layout}", type=POOL_ERASURE,
+                       size=K + M, pg_num=256, crush_rule=0,
+                       erasure_code_profile="p", stripe_unit=128 << 10))
+    sim = ClusterSim(om, device=device)
+    prof = {"plugin": "jax", "k": str(K), "m": str(M),
+            "technique": "reed_sol_van"}
+    if layout == "bytes":
+        prof["layout"] = "bytes"         # else the cluster default
+    sim.create_ec_profile("p", prof)
+    codec = sim.codec_for(om.pools[1])
+    if codec.layout != layout:
+        fail(f"cluster step: pool layout {codec.layout}, wanted {layout}")
+    rng = np.random.default_rng(SEED)
+    names = [f"{layout}{i:03d}" for i in range(n_objects)]
+    datas = [rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes()
+             for _ in names]
+    times = {}
+    phase_launches = {}
+
+    def mark(phase):
+        phase_launches[phase] = [xor_kernel.launches, gf_pallas.launches]
+
+    sync(device)
+    xor_kernel.launches = 0
+    gf_pallas.launches = 0
+    c0 = counters()
+    try:
+        t0 = time.perf_counter()
+        up0, _ = om.map_pgs_batch(1)
+        times["map_pgs_batch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        placed = sim.put_many(1, names, datas)
+        sync(device)
+        times["put_many_s"] = time.perf_counter() - t0
+        mark("put_many")
+        if any(len(p) != K + M for p in placed.values()):
+            fail(f"cluster step ({layout}): a shard did not land")
+        pool = om.pools[1]
+        up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
+        victims = [o for o in up if o != ITEM_NONE][:M]
+        for v in victims:
+            sim.kill_osd(v)
+        t0 = time.perf_counter()
+        gets = [sim.get(1, nm) for nm in names]
+        times["degraded_get_s"] = time.perf_counter() - t0
+        mark("degraded_get")
+        if gets != datas:
+            fail(f"cluster step ({layout}): a degraded read differs")
+        for v in victims:
+            sim.out_osd(v)
+        t0 = time.perf_counter()
+        rec = sim.recover_all(1)
+        sync(device)
+        times["recover_all_s"] = time.perf_counter() - t0
+        mark("recover_all")
+        t0 = time.perf_counter()
+        up1, _ = om.map_pgs_batch(1)
+        times["remap_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gets2 = [sim.get(1, nm) for nm in names]
+        times["get_after_recovery_s"] = time.perf_counter() - t0
+        mark("get_after_recovery")
+        if gets2 != datas:
+            fail(f"cluster step ({layout}): a read after recovery differs")
+    finally:
+        sim.shutdown()
+    _, _, p1, p2, disp, rebuild = (b - a for a, b in zip(c0, counters()))
+    k1, k2 = xor_kernel.launches, gf_pallas.launches
+    if rec["shards_rebuilt"] <= 0:
+        fail(f"cluster step ({layout}): recovery rebuilt nothing")
+    if p1 or p2:
+        fail(f"cluster step ({layout}): a plain version ran on the path")
+    if layout == "bytes":
+        want_k1, want_k2 = 0, disp
+    else:
+        want_k1, want_k2 = disp + rebuild, 0
+    if (k1, k2) != (want_k1, want_k2) or k1 + k2 == 0:
+        fail(f"cluster step ({layout}): K1 launched {k1}, K2 {k2}; the "
+             f"path made {want_k1} K1 and {want_k2} K2 dispatches")
+    return {"layout": layout, "objects": n_objects, "object_bytes": obj_bytes,
+            "osds": cmap.max_devices, "pg_num": 256, "victims": victims,
+            "pgs_moved": int((np.asarray(up1) != np.asarray(up0))
+                             .any(axis=1).sum()),
+            "recover": rec, "ec_dispatches": disp,
+            "rebuild_dispatches": rebuild, "k1_launches": k1,
+            "k2_launches": k2,
+            "cumulative_launches_k1_k2": phase_launches, **times}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip()
+
+
+def time_k2(shapes, card: str) -> dict:
+    """K2's device time at the batched encode and put shapes beside its
+    bound and its plain version."""
+    out = {}
+    for name in ("encode", "put"):
+        bitmat, data = shapes[name]
+        B, k, L = data.shape
+        m = bitmat.shape[0] // 8
+        bm_dev = torch.as_tensor(bitmat, device=data.device)
+        n0 = gf_pallas.launches
+        ms = graph_ms(lambda: gf_pallas.bitplane_matmul(bitmat, data),
+                      iters=50)
+        call_ms = cuda_ms(lambda: gf_pallas.bitplane_matmul(bitmat, data),
+                          iters=50)
+        if gf_pallas.launches - n0 != 2 + 50 + 2 + 50:
+            fail("K2 timing: a wrapper call did not launch the kernel")
+        plain_ms = cuda_ms(lambda: gf_jax.bitplane_matmul(bm_dev, data),
+                           iters=3, warmup=1)
+        bound_ms, bound_by, nbytes, ops = k2_bound(B, k, m, L)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        emit({"phase": "timing", "kernel": "gf_bitplane", "shape": name,
+              "data": list(data.shape), "out": [B, m, L], "ms": ms,
+              "call_ms": call_ms,
+              "plain_ms": plain_ms, "bytes": nbytes, "lookups": ops,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "lookups_ms": ops / SMEM_LOOKUPS_PER_S * 1e3,
+              "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+              "roofline_share": bound_ms / ms, "gpu": card})
+    return out
+
+
+def time_k1(shapes, card: str) -> dict:
+    """K1's device time at the encode, decode and rebuild shapes."""
+    timings = {}
+    for name in ("encode", "decode", "rebuild"):
+        masks, words = shapes[name]
+        B, C, W = words.shape
+        R = masks.shape[-2]
+        Bm = B if masks.dim() == 3 else 1
+        ms = graph_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
+                      iters=50)
+        call_ms = cuda_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
+                          iters=50)
+        m3 = masks if masks.dim() == 3 else masks[None]
+        plain_ms = cuda_ms(lambda: xor_kernel._combine_torch(m3, words),
+                           iters=3, warmup=1)
+        bound_ms, bound_by, nbytes, ops = k1_bound(B, Bm, R, C, W)
+        timings[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        emit({"phase": "timing", "kernel": "xor_matmul_w32", "shape": name,
+              "masks": list(masks.shape), "words": list(words.shape),
+              "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+              "hbm_share": nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
+              "roofline_share": bound_ms / ms, "gpu": card})
+    return timings
 
 
 def main() -> int:
@@ -359,62 +741,72 @@ def main() -> int:
     # 1. build
     build_kernels(card)
 
-    # 2. kernel vs plain version at the main path's shapes
+    # 2. kernels vs plain versions at the main path's shapes
     codec = instance().factory(
         "jax", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
                 "layout": "bitsliced"})
     shapes = k1_shapes(device, codec, gen)
     errs = kernel_checks(device, shapes)
+    shapes2 = k2_shapes(device, gen)
+    errs2 = k2_checks(device, shapes2)
 
-    # 3. the slice end to end, with the launch counts read around it
+    # 3. the ECBackend data path, with the launch counts read around it
     xor_kernel.launches = 0
-    plain0 = xor_kernel.plain_runs
+    gf_pallas.launches = 0
+    plain0 = (xor_kernel.plain_runs, gf_pallas.plain_runs)
     torch.cuda.reset_peak_memory_stats()
     path = run_slice(device, gen, n_objects=128,
                      obj_bytes=4 << 20, stripe_unit=128 << 10)
-    launches = xor_kernel.launches
+    k1_slice = xor_kernel.launches
     path["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    path["k1_launches"] = launches
+    path["k1_launches"] = k1_slice
     path["gpu"] = card
     emit({"phase": "slice", **path})
-    if xor_kernel.plain_runs != plain0:
+    if (xor_kernel.plain_runs, gf_pallas.plain_runs) != plain0:
         fail("a plain version ran on the main path")
-    if launches != path["dispatches"] or launches == 0:
-        fail(f"K1 launched {launches} times on the main path; the path "
+    if k1_slice != path["dispatches"] or k1_slice == 0 or \
+            gf_pallas.launches:
+        fail(f"K1 launched {k1_slice} times on the main path; the path "
              f"makes {path['dispatches']} dispatches")
 
-    # 4. numbers
-    timings = {}
-    for name in ("encode", "decode", "rebuild"):
-        masks, words = shapes[name]
-        B, C, W = words.shape
-        R = masks.shape[-2]
-        Bm = B if masks.dim() == 3 else 1
-        ms = cuda_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
-                     iters=50)
-        m3 = masks if masks.dim() == 3 else masks[None]
-        plain_ms = cuda_ms(
-                           lambda: xor_kernel._combine_torch(m3, words),
-                           iters=3, warmup=1)
-        bound_ms, bound_by, nbytes, ops = k1_bound(B, Bm, R, C, W)
-        timings[name] = {"ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
-        emit({"phase": "timing", "kernel": "xor_matmul_w32", "shape": name,
-              "masks": list(masks.shape), "words": list(words.shape),
-              "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-              "bound_ms": bound_ms, "bound_by": bound_by,
-              "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
-              "hbm_share": nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,
-              "roofline_share": bound_ms / ms, "gpu": card})
-    enc = timings["encode"]
-    emit({"kernels": [{
-        "name": "xor_matmul_w32", "route": "cuda",
-        "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
-        "replaces": "ceph_tpu/ops/xor_kernel.py:76",
-        "launches": launches, "max_abs_err": max(errs.values()),
-        "ms": enc["ms"], "plain_ms": enc["plain_ms"],
-        "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
-        "library_ms": None}]})
+    # 4. the placement sweep (no kernel: batched torch on the card)
+    sweep = placement_sweep(device)
+    sweep["gpu"] = card
+    emit({"phase": "placement_sweep", **sweep})
+
+    # 5. the cluster step, one pool after the other
+    steps = {}
+    for layout in ("bitsliced", "bytes"):
+        torch.cuda.reset_peak_memory_stats()
+        st = cluster_step(device, layout)
+        st["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        st["gpu"] = card
+        emit({"phase": "cluster_step", **st})
+        steps[layout] = st
+    if (xor_kernel.plain_runs, gf_pallas.plain_runs) != plain0:
+        fail("a plain version ran on the main path")
+
+    # 6. numbers
+    t1 = time_k1(shapes, card)
+    t2 = time_k2(shapes2, card)
+    enc1, enc2 = t1["encode"], t2["encode"]
+    emit({"kernels": [
+        {"name": "xor_matmul_w32", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
+         "replaces": "ceph_tpu/ops/xor_kernel.py:76",
+         "launches": k1_slice + steps["bitsliced"]["k1_launches"],
+         "max_abs_err": max(errs.values()),
+         "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
+         "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
+         "library_ms": None},
+        {"name": "gf_bitplane", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/gf_bitplane.cu",
+         "replaces": "ceph_tpu/ops/gf_pallas.py:34",
+         "launches": steps["bytes"]["k2_launches"],
+         "max_abs_err": max(errs2.values()),
+         "ms": enc2["ms"], "plain_ms": enc2["plain_ms"],
+         "bound_ms": enc2["bound_ms"], "bound_by": enc2["bound_by"],
+         "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

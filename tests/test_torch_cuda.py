@@ -1,4 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""The port on the card: kernels K1 and K2 against their plain PyTorch
+versions, the fast mapper and the cluster step against the CPU.
 
 Every test here needs an NVIDIA card and skips without one (the decision
 is made inside a fixture, never at import).  Run on the card with
@@ -14,7 +15,7 @@ import torch
 
 from ceph_tpu.ops import gf2 as gf2_ref
 from ceph_tpu_torch.ec import instance
-from ceph_tpu_torch.ops import gf, gf2, xor_kernel
+from ceph_tpu_torch.ops import gf, gf2, gf_jax, gf_pallas, xor_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +180,148 @@ def test_codec_on_card_equals_codec_on_cpu(card):
     assert np.array_equal(
         gpu.decode_chunks_batch(avail, full[:, avail], [1, 4, 9]),
         full[:, [1, 4, 9]])
+
+
+# ------------------------------------------------------------------ K2 --
+
+def check_k2(card, bitmat, data_np, data=None):
+    """K2 == its plain version on the card == the plain version on the
+    CPU (exact)."""
+    if data is None:
+        data = torch.from_numpy(data_np).to(card)
+    got = gf_pallas.bitplane_matmul(bitmat, data)
+    plain = gf_jax.bitplane_matmul(torch.as_tensor(bitmat, device=card),
+                                   data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    cpu = gf_jax.bitplane_matmul(torch.as_tensor(bitmat),
+                                 data.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    return got
+
+
+def rand_bytes(shape, seed):
+    return np.random.default_rng(seed).integers(0, 256, size=shape,
+                                                dtype=np.uint8)
+
+
+def decode_bitmat(k, m, erased):
+    G = gf.generator_matrix(gf.vandermonde_parity(k, m))
+    avail = [c for c in range(k + m) if c not in erased][:k]
+    return gf.gf8_bitmatrix(
+        gf.gf_matmul(G[sorted(erased)], gf.gf_gaussian_inverse(G[avail])))
+
+
+@pytest.mark.parametrize("name,shape,rows", [
+    ("put", (4, 8, 131072), "encode"),
+    ("decode", (4, 8, 131072), "decode"),
+    ("recovery", (32, 8, 131072), "decode"),
+    ("ragged", (4, 8, 131071), "encode"),
+    ("tiny", (3, 8, 13), "encode"),
+])
+def test_k2_matches_plain_at_main_path_shapes(card, name, shape, rows):
+    bitmat = gf.gf8_bitmatrix(gf.vandermonde_parity(8, 3)) \
+        if rows == "encode" else decode_bitmat(8, 3, [1, 4, 9])
+    got = check_k2(card, bitmat, rand_bytes(shape, len(name)))
+    assert tuple(got.shape) == shape[:1] + (3,) + shape[2:]
+
+
+def test_k2_unaligned_pointer(card):
+    bitmat = gf.gf8_bitmatrix(gf.cauchy_good_parity(6, 3))
+    flat = torch.from_numpy(rand_bytes(2 * 6 * 4096 + 1, 8)).to(card)
+    data = flat[1:].reshape(2, 6, 4096)       # 1-byte offset: byte loads
+    assert data.data_ptr() % 16 == 1
+    check_k2(card, bitmat, None, data)
+
+
+def test_k2_twenty_chunks_and_random_bitmatrices(card):
+    """k + m = 20 (two row groups of four), and a random bit-matrix of 20
+    output rows (two passes) — the table form holds for any bitmat."""
+    check_k2(card, gf.gf8_bitmatrix(gf.isa_rs_parity(14, 6)),
+             rand_bytes((3, 14, 4096), 9))
+    bm = np.random.default_rng(10).integers(0, 2, size=(160, 72),
+                                            dtype=np.uint8)
+    check_k2(card, bm, rand_bytes((3, 9, 1001), 11))
+
+
+def test_k2_wrong_inputs_raise(card):
+    bitmat = gf.gf8_bitmatrix(gf.vandermonde_parity(4, 2))
+    with pytest.raises(TypeError):
+        gf_pallas.bitplane_matmul(
+            bitmat, torch.zeros((1, 4, 64), dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="contract"):
+        gf_pallas.bitplane_matmul(
+            bitmat, torch.zeros((1, 3, 64), dtype=torch.uint8, device=card))
+    with pytest.raises(ValueError, match="contract"):
+        gf_pallas.bitplane_matmul(bitmat[:, :24], torch.zeros(
+            (1, 4, 64), dtype=torch.uint8, device=card))
+    for lead in ((1,), (2, 3)):
+        with pytest.raises(ValueError, match="contiguous"):
+            gf_pallas.bitplane_matmul(bitmat, torch.zeros(
+                lead + (64, 4), dtype=torch.uint8,
+                device=card).transpose(-1, -2))
+
+
+def test_k2_cuda_tensor_never_reaches_plain_version(card, monkeypatch):
+    def refuse(*_):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(gf_pallas, "_bitplane_matmul_torch", refuse)
+    runs, launches = gf_pallas.plain_runs, gf_pallas.launches
+    gf_pallas.bitplane_matmul(gf.gf8_bitmatrix(gf.vandermonde_parity(8, 3)),
+                              torch.from_numpy(rand_bytes((2, 8, 256), 12))
+                              .to(card))
+    torch.cuda.synchronize()
+    assert gf_pallas.plain_runs == runs
+    assert gf_pallas.launches == launches + 1
+
+
+def test_byte_codec_on_card_equals_cpu_and_refuses_xla(card):
+    from ceph_tpu_torch.common.options import config
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+    prof = {"k": "8", "m": "3", "layout": "bytes", "technique": "cauchy"}
+    gpu = instance().factory("jax", prof, device=card)
+    cpu = instance().factory("jax", prof, device="cpu")
+    data = rand_bytes((4, 8, 4096), 13)
+    par = gpu.encode_chunks_batch(data)
+    assert np.array_equal(par, cpu.encode_chunks_batch(data))
+    full = np.concatenate([data, par], axis=1)
+    avail = [0, 2, 3, 5, 6, 7, 8, 10]
+    assert np.array_equal(
+        gpu.decode_chunks_batch(avail, full[:, avail], [1, 4, 9]),
+        full[:, [1, 4, 9]])
+    config().set("ec_kernel", "xla")
+    try:
+        with pytest.raises(ErasureCodeError, match="never runs"):
+            gpu.encode_chunks_batch(data)
+    finally:
+        config().clear("ec_kernel")
+
+
+# ------------------------------------------------ placement and cluster --
+
+def test_fast_mapper_on_card_equals_cpu(card):
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        RULE_CHOOSELEAF_FIRSTN, RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE,
+        Rule)
+    from ceph_tpu_torch.placement.fast_mapper import FastMapper
+    xs = np.arange(50000)
+    for op, rm in ((RULE_CHOOSELEAF_FIRSTN, 3), (RULE_CHOOSELEAF_INDEP, 6)):
+        cmap, root = build_flat_cluster(n_hosts=16, osds_per_host=4, seed=2)
+        cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0), (op, 0, TYPE_HOST),
+                                  (RULE_EMIT, 0, 0)]))
+        w = [0x10000] * cmap.max_devices
+        w[3], w[17] = 0, 0x8000
+        a = FastMapper(cmap, device=card).map_batch(0, xs, rm, w)
+        b = FastMapper(cmap, device="cpu").map_batch(0, xs, rm, w)
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("layout", ["bitsliced", "bytes"])
+def test_cluster_step_on_card_equals_cpu(card, layout):
+    from ceph_tpu_torch import entry
+    got = entry.cluster_step(device=card, layout=layout)
+    want = entry.cluster_step(device="cpu", layout=layout)
+    assert got["gets"] == got["datas"] == want["datas"]
+    for key in ("placed", "gets2", "rec", "up0", "up1", "victims"):
+        assert got[key] == want[key], key

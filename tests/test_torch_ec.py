@@ -1,4 +1,5 @@
-"""The port's 'jax' codec (layout=bitsliced) against ceph_tpu's.
+"""The port's 'jax' codec (layout=bitsliced and layout=bytes) against
+ceph_tpu's.
 
 One profile dict builds both codecs; the same NumPy inputs (from
 ``np.random.default_rng``) go through both, on the CPU, and every
@@ -179,11 +180,121 @@ def test_corpus_bytes_pinned(k, m):
                               corpus[f"jax.bitsliced.k{k}m{m}.c{c}"]), c
 
 
-def test_bytes_layout_raises_naming_k2():
-    for prof in ({"k": "4", "m": "2"},
-                 {"k": "8", "m": "3", "layout": "bytes"}):
-        with pytest.raises(ErasureCodeError, match="K2"):
-            instance().factory("jax", prof, device="cpu")
+@pytest.mark.cuda
+def test_ec_kernel_xla_on_a_cuda_tensor_raises():
+    """``ec_kernel=xla`` names the plain GF(2^8) product, which never runs
+    on the card: a byte-layout codec on a CUDA tensor refuses it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ceph_tpu_torch.common.options import config
+    codec = instance().factory("jax", bytes_profile("reed_sol_van", 4, 2),
+                               device="cuda")
+    config().set("ec_kernel", "xla")
+    try:
+        with pytest.raises(ErasureCodeError, match="never runs on the card"):
+            codec.encode_chunks_device(
+                torch.zeros((1, 4, 64), dtype=torch.uint8, device="cuda"))
+    finally:
+        config().clear("ec_kernel")
+
+
+# ------------------------------------------------------- layout=bytes ---
+
+def bytes_profile(technique, k, m):
+    return {"k": str(k), "m": str(m), "layout": "bytes",
+            "technique": technique}
+
+
+@functools.lru_cache(maxsize=None)
+def bytes_codecs(technique, k, m):
+    prof = bytes_profile(technique, k, m)
+    return (instance().factory("jax", dict(prof), device="cpu"),
+            ref_instance().factory("jax", dict(prof)))
+
+
+@pytest.mark.parametrize("technique,k,m", CASES)
+def test_bytes_encode_chunks(technique, k, m):
+    port, ref = bytes_codecs(technique, k, m)
+    assert port.layout == "bytes" and port.get_profile() == ref.get_profile()
+    rng = np.random.default_rng(20)
+    data = rng.integers(0, 256, size=(k, 37), dtype=np.uint8)
+    got = port.encode_chunks(data)
+    assert got.dtype == np.uint8 and got.shape == (m, 37)
+    assert np.array_equal(got, ref_np(ref.encode_chunks(data), np.uint8))
+    batch = rng.integers(0, 256, size=(3, k, CHUNK), dtype=np.uint8)
+    assert np.array_equal(port.encode_chunks_batch(batch),
+                          ref_np(ref.encode_chunks_batch(batch), np.uint8))
+
+
+@pytest.mark.parametrize("technique,k,m", CASES)
+def test_bytes_decode_chunks_every_erasure_set(technique, k, m):
+    port, ref = bytes_codecs(technique, k, m)
+    n = k + m
+    data = np.random.default_rng(21).integers(0, 256, size=(2, k, CHUNK),
+                                              dtype=np.uint8)
+    full = np.concatenate([data, port.encode_chunks_batch(data)], axis=1)
+    for erased in erasure_sets(n, m):
+        avail = [c for c in range(n) if c not in erased]
+        got = port.decode_chunks_batch(avail, full[:, avail], erased)
+        want = ref_np(ref.decode_chunks_batch(avail, full[:, avail], erased),
+                      np.uint8)
+        assert np.array_equal(got, want), erased
+        assert np.array_equal(got, full[:, erased]), erased
+
+
+@pytest.mark.parametrize("technique,k,m", CASES)
+def test_bytes_minimum_to_decode(technique, k, m):
+    port, ref = bytes_codecs(technique, k, m)
+    n = k + m
+    for erased in erasure_sets(n, m):
+        avail = set(range(n)) - set(erased)
+        for want in (set(range(k)), set(erased)):
+            assert port.minimum_to_decode(want, avail) == \
+                ref.minimum_to_decode(want, avail), (want, avail)
+
+
+@pytest.mark.parametrize("technique,k,m", [
+    ("reed_sol_van", 4, 2), ("reed_sol_van", 8, 3), ("cauchy", 4, 2),
+    ("cauchy_good", 6, 3), ("isa_rs", 8, 4)])
+def test_bytes_corpus_pinned(technique, k, m):
+    """The pinned jax.<technique> entries: profiles that name no layout
+    get the codec's own default, bytes."""
+    corpus = np.load(CORPUS)
+    codec = instance().factory("jax", profile_for("jax", technique, k, m),
+                               device="cpu")
+    assert codec.layout == "bytes"
+    n = codec.get_chunk_count()
+    chunks = codec.encode(set(range(n)), payload())
+    for c in range(n):
+        assert np.array_equal(
+            chunks[c], corpus[f"jax.{technique}.k{k}m{m}.c{c}"]), c
+
+
+def test_bytes_layout_refuses_the_word_domain():
+    port, _ = bytes_codecs("reed_sol_van", 4, 2)
+    with pytest.raises(ErasureCodeError, match="bitsliced"):
+        port.encode_words_device(torch.zeros((1, 4, 8), dtype=torch.int32))
+    with pytest.raises(ErasureCodeError, match="bitsliced"):
+        port.decode_words_device([0, 1, 2, 3], torch.zeros(
+            (1, 4, 8), dtype=torch.int32), [4])
+
+
+def test_ec_kernel_xla_on_the_cpu_runs_the_plain_version():
+    from ceph_tpu_torch.common.options import config
+    from ceph_tpu_torch.ops import gf_pallas
+    port, ref = bytes_codecs("cauchy", 4, 2)
+    data = np.random.default_rng(22).integers(0, 256, size=(2, 4, 40),
+                                              dtype=np.uint8)
+    want = ref_np(ref.encode_chunks_batch(data), np.uint8)
+    runs = gf_pallas.plain_runs
+    assert np.array_equal(port.encode_chunks_batch(data), want)
+    assert gf_pallas.plain_runs == runs + 1
+    config().set("ec_kernel", "xla")
+    try:
+        assert np.array_equal(port.encode_chunks_batch(data), want)
+    finally:
+        config().clear("ec_kernel")
+    assert gf_pallas.plain_runs == runs + 1     # xla: gf8_matmul directly
     with pytest.raises(ErasureCodeError):
         instance().factory("jax", {"k": "4", "m": "2", "layout": "bogus"},
                            device="cpu")

@@ -1,0 +1,197 @@
+"""The slice as a whole: the port's ClusterSim against ceph_tpu's.
+
+``ceph_tpu_torch.entry.cluster_step`` runs the single-device leg of
+``__graft_entry__._cluster_sharded_impl`` (batched put, degraded get,
+kill and out OSDs, recover_all, the map_pgs_batch remap sweep, get
+again) on the CPU; the same steps run on ``ceph_tpu``'s ClusterSim, built
+as ``__graft_entry__.py:140-196`` builds it, with seed 0, for the default
+bitsliced layout (HBM-staged, K1) and for ``layout=bytes`` (host tier,
+K2).  Everything the step returns must be equal between the packages.
+A few cases of tests/test_simulator.py and tests/test_device_staging.py
+follow: mixed sizes in two stripe classes, a kill beyond m.
+"""
+import numpy as np
+import pytest
+
+import ceph_tpu_torch
+from ceph_tpu_torch import entry
+from ceph_tpu_torch.common.perf_counters import perf
+from ceph_tpu_torch.ops import gf_pallas, xor_kernel
+
+KEYS = ("placed", "gets", "gets2", "rec", "up0", "up1", "victims")
+# the dry run's 2 x n_devices objects at n_devices = 4 (each stripe class
+# costs the reference a compile on the CPU)
+N_OBJECTS = 8
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    prev = ceph_tpu_torch.default_device()
+    ceph_tpu_torch.set_default_device("cpu")
+    yield
+    ceph_tpu_torch.set_default_device(prev)
+
+
+@pytest.fixture(scope="module")
+def ref_crush():
+    """The dry run's CRUSH map and ONE reference XlaMapper for it, shared
+    by both layouts' reference sims (weights are runtime operands of the
+    mapper, so sharing it changes no result; its jit compile on the CPU
+    is the bulk of this file's time)."""
+    from ceph_tpu.placement.builder import TYPE_HOST, build_flat_cluster
+    from ceph_tpu.placement.crush_map import (
+        RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE, Rule)
+    from ceph_tpu.placement.xla_mapper import XlaMapper
+    cmap, root = build_flat_cluster(n_hosts=8, osds_per_host=1)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_INDEP, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    mapper = XlaMapper(cmap)
+    mapper.map_batch(0, np.arange(16), 6, [0x10000] * cmap.max_devices)
+    return cmap, mapper
+
+
+def ref_cluster_step(ref_crush, layout, seed=0, n_objects=N_OBJECTS):
+    """``__graft_entry__._cluster_sharded_impl``'s run(False) on
+    ceph_tpu, with the pool's layout named (None: the cluster default)."""
+    from ceph_tpu.cluster.osdmap import OSDMap, PGPool, POOL_ERASURE
+    from ceph_tpu.cluster.simulator import ClusterSim
+    k, m = 4, 2
+    cmap, mapper = ref_crush
+    om = OSDMap(cmap)
+    om._mapper, om._mapper_map = mapper, cmap
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name="ec", type=POOL_ERASURE, size=k + m,
+                       pg_num=16, crush_rule=0, erasure_code_profile="p",
+                       stripe_unit=64))
+    sim = ClusterSim(om)
+    prof = {"plugin": "jax", "k": str(k), "m": str(m)}
+    if layout is not None:
+        prof["layout"] = layout
+    sim.create_ec_profile("p", prof)
+    rng = np.random.default_rng(seed)
+    names = [f"o{i}" for i in range(n_objects)]
+    datas = [rng.integers(0, 256, int(sz), dtype=np.uint8).tobytes()
+             for sz in rng.integers(200, 4000, len(names))]
+    placed = sim.put_many(1, names, datas)
+    pool = sim.osdmap.pools[1]
+    up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
+    victims = [o for o in up if o >= 0][:2]
+    up0, _ = sim.osdmap.map_pgs_batch(1)
+    for v in victims:
+        sim.kill_osd(v)
+    gets = [sim.get(1, nm) for nm in names]
+    for v in victims:
+        sim.out_osd(v)
+    rec = sim.recover_all(1)
+    up1, _ = sim.osdmap.map_pgs_batch(1)
+    gets2 = [sim.get(1, nm) for nm in names]
+    sim.shutdown()
+    return {"placed": {nm: len(p) for nm, p in placed.items()},
+            "datas": datas, "gets": gets, "gets2": gets2, "rec": rec,
+            "up0": np.asarray(up0).tolist(),
+            "up1": np.asarray(up1).tolist(), "victims": victims}
+
+
+@pytest.mark.parametrize("layout", ["bitsliced", "bytes"])
+def test_cluster_step_equals_reference(ref_crush, layout):
+    got = entry.cluster_step(device="cpu", layout=layout, seed=0,
+                             n_objects=N_OBJECTS)
+    want = ref_cluster_step(ref_crush,
+                            None if layout == "bitsliced" else layout)
+    assert got["datas"] == want["datas"]
+    assert got["gets"] == got["datas"]
+    assert got["gets2"] == got["datas"]
+    for key in KEYS:
+        assert got[key] == want[key], key
+    assert got["rec"]["shards_rebuilt"] > 0
+
+
+def run_dispatches(layout, fn):
+    """(ec.jax encode+decode dispatches, K1 plain runs, K2 plain runs)
+    made by ``fn()``: on the CPU every kernel wrapper takes its plain
+    version, one trip per dispatch of its layout."""
+    pc = perf("ec.jax")
+
+    def snap():
+        d = pc.dump()
+        return (d.get("encode_dispatches", 0) + d.get("decode_dispatches", 0),
+                xor_kernel.plain_runs, gf_pallas.plain_runs)
+
+    before = snap()
+    fn()
+    return tuple(a - b for a, b in zip(snap(), before))
+
+
+@pytest.mark.parametrize("layout", ["bitsliced", "bytes"])
+def test_each_dispatch_reaches_its_layouts_kernel_wrapper(layout):
+    dispatches, k1, k2 = run_dispatches(
+        layout, lambda: entry.cluster_step(device="cpu", layout=layout,
+                                           n_objects=N_OBJECTS))
+    assert dispatches > 0
+    if layout == "bytes":
+        assert (k1, k2) == (0, dispatches)
+    else:     # the rebuild sweep also calls K1 directly, once per batch
+        assert k2 == 0 and k1 > dispatches
+
+
+@pytest.mark.parametrize("layout", ["bitsliced", "bytes"])
+def test_mixed_sizes_in_two_stripe_classes(layout):
+    sim = entry.build_sim(layout=layout, device="cpu")
+    try:
+        rng = np.random.default_rng(3)
+        # stripe width 4 x 64 B: 1-stripe and 3-stripe objects
+        sizes = [100, 256, 600, 700, 17, 768]
+        names = [f"m{i}" for i in range(len(sizes))]
+        datas = [rng.integers(0, 256, s, dtype=np.uint8).tobytes()
+                 for s in sizes]
+        placed = sim.put_many(1, names, datas)
+        assert all(len(p) == 6 for p in placed.values())
+        for nm, d in zip(names, datas):
+            info = sim.objects[(1, nm)]
+            assert info.size == len(d)
+            assert info.n_stripes == (1 if len(d) <= 256 else 3)
+            assert sim.get(1, nm) == d
+    finally:
+        sim.shutdown()
+
+
+@pytest.mark.parametrize("layout", ["bitsliced", "bytes"])
+def test_kill_beyond_m_raises_ioerror(layout):
+    sim = entry.build_sim(layout=layout, device="cpu")
+    try:
+        data = np.random.default_rng(4).integers(
+            0, 256, 900, dtype=np.uint8).tobytes()
+        sim.put(1, "x", data)
+        pool = sim.osdmap.pools[1]
+        up = sim.pg_up(pool, sim.object_pg(pool, "x"))
+        for o in up[:2]:
+            sim.kill_osd(o)
+        assert sim.get(1, "x") == data          # m = 2 losses: decodes
+        sim.kill_osd(up[2])
+        with pytest.raises(IOError):
+            sim.get(1, "x")
+    finally:
+        sim.shutdown()
+
+
+def test_byte_pool_runs_the_host_tier_and_bitsliced_the_staging_tier():
+    for layout, staged in (("bitsliced", True), ("bytes", False)):
+        sim = entry.build_sim(layout=layout, device="cpu")
+        try:
+            codec = sim.codec_for(sim.osdmap.pools[1])
+            assert codec.layout == layout
+            assert sim._device_staging(codec) is staged
+        finally:
+            sim.shutdown()
+
+
+def test_tiering_and_object_classes_name_the_later_slice():
+    sim = entry.build_sim(device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sim._tier_hits(1)
+        with pytest.raises(NotImplementedError, match="class_handler"):
+            sim.exec_cls(1, "x", "hello", "say_hello")
+    finally:
+        sim.shutdown()
