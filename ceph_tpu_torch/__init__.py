@@ -3,16 +3,18 @@
 Mirrors ``ceph_tpu``'s layout (``ceph_tpu/X/y.py`` ->
 ``ceph_tpu_torch/X/y.py``) and holds itself bit-identical to it; the
 device work runs on one NVIDIA Hopper card through kernels written for
-it in ``csrc/`` (K1 ``xor_matmul.cu``, K2 ``gf_bitplane.cu``).  The
-package imports ``torch`` and NumPy, never JAX and nothing of
-``ceph_tpu``: the NumPy-only modules it needs are kept here as copies
-(``common/{options,perf_counters,faults,lockdep,tracer,op_tracker,
-jit_profile}.py``, ``ops/{gf,gf2}.py``, ``ec/{interface,base,
-table_cache,matrix_codec}.py``, ``placement/{crush_map,lntable,builder,
-scalar_mapper}.py``, ``msg/{encoding,queue,scheduler,dispatcher}.py``,
-``cluster/{pg_heat,objectstore,pglog,ec_rmw,osd_service}.py`` and
-``native_bridge.py``, which builds ``native/*.cpp`` into
-``build/native/``).
+it in ``csrc/`` (K1 ``xor_matmul.cu``, K2 ``gf_bitplane.cu``, K3
+``ragged_fused.cu``).  The package imports ``torch`` and NumPy, never
+JAX and nothing of ``ceph_tpu``: the NumPy-only modules it needs are
+kept here as copies (``common/{options,perf_counters,faults,lockdep,
+tracer,op_tracker,jit_profile,crcutil,auth,compressor}.py``,
+``ops/{gf,gf2}.py``, ``ec/{interface,base,table_cache,
+matrix_codec}.py``, ``placement/{crush_map,lntable,builder,
+scalar_mapper}.py``, ``msg/{encoding,queue,scheduler,dispatcher,
+shm_ring}.py``, ``msg/wire.py`` but for its receive verify,
+``cluster/{pg_heat,objectstore,pglog,ec_rmw,osd_service,blockdev,kv,
+wal_kv,bluestore}.py`` and ``native_bridge.py``, which builds
+``native/*.cpp`` into ``build/native/``).
 
 Device policy: entry points run on the card.  The package default device
 is ``cuda``; a caller asks for the CPU explicitly, with

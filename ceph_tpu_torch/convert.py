@@ -17,6 +17,9 @@ either package's value.
   * An OSDMap crosses as ``osdmap_state``: that crush state plus the
     OSD weights and up/in/exists flags, primary affinity, the pools as
     PGPool fields, pg_temp, primary_temp and the upmap tables.
+  * A ``crcutil.Csums`` (the wire tier's per-4 KiB sub-crcs of one
+    payload) crosses as ``csums_state``: its ``block``, ``subs`` and
+    ``length``; ``combined`` is derived again on arrival and checked.
 """
 from __future__ import annotations
 
@@ -188,3 +191,25 @@ def osdmap_from_state(state: dict, device=None):
     om.pg_upmap_items = {k: [tuple(p) for p in v]
                          for k, v in state["pg_upmap_items"].items()}
     return om
+
+
+# ---------------------------------------------------------------- Csums --
+
+def csums_state(cs) -> dict:
+    """A ``crcutil.Csums`` of either package as plain ints."""
+    return {"block": int(cs.block), "subs": [int(c) for c in cs.subs],
+            "length": int(cs.length), "combined": int(cs.combined)}
+
+
+def csums_from_state(state: dict, cls=None):
+    """A Csums for ``csums_state``'s output: the port's, or ``cls``
+    (the reference's ``crcutil.Csums``, handed in by a caller that has
+    it).  The combined crc is derived from the sub-crcs and must equal
+    the one carried."""
+    if cls is None:
+        from .common.crcutil import Csums as cls
+    cs = cls(state["block"], list(state["subs"]), state["length"])
+    if cs.combined != state["combined"]:
+        raise ValueError(f"csums state: sub-crcs combine to "
+                         f"{cs.combined:#x}, carried {state['combined']:#x}")
+    return cs

@@ -46,42 +46,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gf_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;              // threads per block
 constexpr int kBytes = 16;                 // column bytes per thread per row
 constexpr long long kTile = kThreads * kBytes;
-constexpr int kTableWords = 256;           // entries per (group, row) table
-
-template <bool VEC>
-__device__ __forceinline__ void load16(const uint8_t* p, long long left,
-                                       uint32_t (&w)[4]) {
-    if constexpr (VEC) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-    } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            uint32_t x = 0;
-#pragma unroll
-            for (int s = 0; s < 4; ++s) {
-                const int p4 = 4 * q + s;
-                if (p4 < left) x |= static_cast<uint32_t>(__ldg(p + p4)) << (8 * s);
-            }
-            w[q] = x;
-        }
-    }
-}
-
-// bytes `row` of acc[4q .. 4q+3] -> one word (row < 4)
-__device__ __forceinline__ uint32_t gather_row(const uint32_t (&acc)[16],
-                                               int q, int row) {
-    const uint32_t sel = static_cast<uint32_t>(row) |
-                         (static_cast<uint32_t>(row + 4) << 4);
-    const uint32_t lo = __byte_perm(acc[4 * q + 0], acc[4 * q + 1], sel);
-    const uint32_t hi = __byte_perm(acc[4 * q + 2], acc[4 * q + 3], sel);
-    return __byte_perm(lo, hi, 0x5410);
-}
 
 template <int G, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -118,14 +89,7 @@ gf_bitplane_kernel(const uint32_t* __restrict__ tab,  // [G][k][256]
         for (int j = 0; j < k; ++j) {
             uint32_t w[4] = {nxt[0], nxt[1], nxt[2], nxt[3]};
             if (j + 1 < k) load16<VEC>(src + (j + 1) * L + c0, left, nxt);
-            const uint32_t* tj = stab + j * kTableWords;
-#pragma unroll
-            for (int g = 0; g < G; ++g) {
-                const uint32_t* tg = tj + g * tstride;
-#pragma unroll
-                for (int p = 0; p < 16; ++p)
-                    acc[g][p] ^= tg[(w[p >> 2] >> (8 * (p & 3))) & 0xFFu];
-            }
+            table_xor<G>(acc, w, stab + j * kTableWords, tstride);
         }
 
 #pragma unroll
@@ -151,17 +115,6 @@ gf_bitplane_kernel(const uint32_t* __restrict__ tab,  // [G][k][256]
             }
         }
     }
-}
-
-int device_attr(cudaDeviceAttr attr, int fallback) {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess) return fallback;
-    if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) return fallback;
-    return v;
-}
-
-int smem_limit() {
-    return device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, 48 * 1024);
 }
 
 template <int G, bool VEC>
@@ -201,10 +154,6 @@ cudaError_t launch(int G, const uint32_t* tab, const uint8_t* data,
         case 3: return launch_pass<3, VEC>(tab, data, out, B, k, m, row0, rows, L, s);
         default: return launch_pass<4, VEC>(tab, data, out, B, k, m, row0, rows, L, s);
     }
-}
-
-bool aligned16(const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace

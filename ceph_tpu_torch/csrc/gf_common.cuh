@@ -1,0 +1,77 @@
+// Device helpers shared by K2 (gf_bitplane.cu) and K3 (ragged_fused.cu): the
+// byte-table GF(2^8) product's loads, the accumulator transpose, and the
+// launch-time queries.  Each .cu is its own shared library, so everything
+// here lives in an anonymous namespace and is compiled into both.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTableWords = 256;           // entries per (group, row) table
+
+// 16 bytes at p into four little-endian words: one 16-byte load when VEC
+// (p 16-byte aligned), else byte loads of the first `left` bytes (the rest 0)
+template <bool VEC>
+__device__ __forceinline__ void load16(const uint8_t* p, long long left,
+                                       uint32_t (&w)[4]) {
+    if constexpr (VEC) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+        w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            uint32_t x = 0;
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+                const int p4 = 4 * q + s;
+                if (p4 < left) x |= static_cast<uint32_t>(__ldg(p + p4)) << (8 * s);
+            }
+            w[q] = x;
+        }
+    }
+}
+
+// Packed-table accumulators acc[p] hold output rows 0..3 of column byte p in
+// their four bytes; bytes `row` of acc[4q .. 4q+3] -> one word (row < 4)
+__device__ __forceinline__ uint32_t gather_row(const uint32_t (&acc)[16],
+                                               int q, int row) {
+    const uint32_t sel = static_cast<uint32_t>(row) |
+                         (static_cast<uint32_t>(row + 4) << 4);
+    const uint32_t lo = __byte_perm(acc[4 * q + 0], acc[4 * q + 1], sel);
+    const uint32_t hi = __byte_perm(acc[4 * q + 2], acc[4 * q + 3], sel);
+    return __byte_perm(lo, hi, 0x5410);
+}
+
+// acc[g][p] ^= tab_g[byte p of w], for G packed row groups (tables of one
+// data row, groups `tstride` words apart)
+template <int G>
+__device__ __forceinline__ void table_xor(uint32_t (&acc)[G > 0 ? G : 1][16],
+                                          const uint32_t (&w)[4],
+                                          const uint32_t* tj, int tstride) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+        const uint32_t* tg = tj + g * tstride;
+#pragma unroll
+        for (int p = 0; p < 16; ++p)
+            acc[g][p] ^= tg[(w[p >> 2] >> (8 * (p & 3))) & 0xFFu];
+    }
+}
+
+inline int device_attr(cudaDeviceAttr attr, int fallback) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return fallback;
+    if (cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) return fallback;
+    return v;
+}
+
+inline int smem_limit() {
+    return device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, 48 * 1024);
+}
+
+inline bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+}  // namespace

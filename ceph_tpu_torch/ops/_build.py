@@ -3,8 +3,9 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), at first use, and loaded with
-``ctypes``.  The library's name carries a hash of the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
+``ctypes``.  The library's name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and a stale library is never loaded.
 Nothing here runs at import time; any build or load failure raises.
 """
 from __future__ import annotations
@@ -49,6 +50,9 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source (gf_common.cuh)
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

@@ -8,14 +8,17 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. build every kernel of ``ceph_tpu_torch/csrc`` (K1 ``xor_matmul.cu``,
-     K2 ``gf_bitplane.cu``) with nvcc for sm_90a (one nvcc per source,
-     started together) and print ptxas's registers, shared memory and
-     spills;
+     K2 ``gf_bitplane.cu``, K3 ``ragged_fused.cu``) with nvcc for sm_90a
+     (one nvcc per source, started together) and print ptxas's
+     registers, shared memory and spills;
   2. hold each kernel bit-identical to its plain PyTorch version on the
      card at the main path's shapes (K1: RS(8,3) encode, a 3-erasure
      decode, a per-stripe-signature rebuild, a ragged word count; K2: the
      per-object put [4, 8, 131072], the batched encode [128, 8, 131072],
-     a 3-erasure decode and a ragged L = 131071);
+     a 3-erasure decode and a ragged L = 131071; K3: a 512-block chunk of
+     the ZeroWire pool (RS(4,2)), RS(8,3), k + m = 20 with a random
+     bit-matrix, a 1-byte, an exact-block and a block + 1 object, and
+     its crc leg alone (m = 0) at block sizes 1, 64, 512 and 4096);
   3. the EC data path through ECBackend: an RS(8,3) layout=bitsliced pool,
      1 MiB stripes, 128 objects of 4 MiB put in one ingest batch onto 16
      OSD device caches, 3 OSDs killed, every object read back (degraded
@@ -33,15 +36,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      64 x 4 MiB objects, 3 OSDs of the first object's up set killed, every
      object read, the three marked out, recover_all, every object read
      again, map_pgs_batch before and after;
-  6. time each kernel beside its bound and its plain version: device time
-     from 50 launches captured in one CUDA graph and replayed between CUDA
-     events, and the wrapper's call time from 50 back-to-back calls
-     between CUDA events (host work included).
+  6. the ZeroWire ingest path of the wire tier: 1,024 objects of the
+     S3Serve mixed-size profile (zipf(1.3) x 1 KiB, clipped to
+     [1 B, 1 MiB], RS(4,2)) through ``ragged_fused.encode`` on the card
+     (K3: parity and per-4 KiB crcs in one pass), every shard sent as a
+     scatter-gather frame with its csums folded in (crc mode, session
+     key) over a socket pair, verified on receipt on the card (K3's crc
+     leg, ``wire_device_crc=auto``), committed into one BlueStore per
+     shard position with the verified csums as blob csums, read back
+     with its trusted csums as a reply frame verified on the card, and
+     one frame with a flipped bit rejected; parity held to K2, every
+     sub-crc to zlib, every byte read back, and the scan counters to
+     "no full block scanned on the host";
+  7. time each kernel beside its bound and its plain version: device time
+     from launches captured in one CUDA graph and replayed between CUDA
+     events, and the wrapper's call time from back-to-back calls between
+     CUDA events (host work included).
 
-Around each path of phases 3-5 the kernels' launch counts are set to 0
+Around each path of phases 3-6 the kernels' launch counts are set to 0
 just before and read just after: K1's must equal the bitsliced paths'
 dispatches, K2's the byte pool's ``ec.jax`` encode + decode dispatches,
-and no plain version may run.  Earlier lines print the card
+K3's the ZeroWire path's encode launches plus its device crc
+dispatches, and no plain version may run.  Earlier lines print the card
 (``nvidia-smi --query-gpu=name,power.limit``), the numbers as JSON, and
 the ``{"kernels": [...]}`` line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,9 +66,13 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -64,7 +84,8 @@ from ceph_tpu_torch.cluster.device_store import DeviceShardCache, \
 from ceph_tpu_torch.cluster.ec_backend import ECBackend, ObjectGeom, ShardIO
 from ceph_tpu_torch.ec import instance
 from ceph_tpu_torch.common.perf_counters import perf
-from ceph_tpu_torch.ops import _build, gf, gf2, gf_jax, gf_pallas, xor_kernel
+from ceph_tpu_torch.ops import (_build, crc32_gf2, gf, gf2, gf_jax, gf_pallas,
+                                ragged_fused, xor_kernel)
 
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -80,6 +101,12 @@ K, M = 8, 3
 N_OSDS = 16
 N_PGS = 16
 POOL = 1
+
+# the ZeroWire path: RS(4,2) over the S3Serve mixed-size profile
+ZW_K, ZW_M = 4, 2
+ZW_OBJECTS = 1024
+STORE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "zerowire")
 
 
 def fail(msg: str) -> None:
@@ -660,6 +687,375 @@ def cluster_step(device, layout: str, n_objects: int = 64,
             "cumulative_launches_k1_k2": phase_launches, **times}
 
 
+# ------------------------------------------------------------------ K3 --
+
+def zerowire_shards(n_objects: int = ZW_OBJECTS):
+    """The S3Serve mixed-size profile of the reference bench (bench.py
+    ``bench_ragged_fused``): zipf(1.3) x 1 KiB object sizes clipped to
+    [1 B, 1 MiB], each object k rows of L bytes, seeded from SEED."""
+    rng = np.random.default_rng(SEED)
+    raw = rng.zipf(1.3, size=n_objects).astype(np.float64)
+    sizes = np.clip((raw * 1024).astype(np.int64), 1, 1 << 20)
+    return [rng.integers(0, 256, size=(ZW_K, int(L)), dtype=np.uint8)
+            for L in sizes]
+
+
+def k3_bound(G: int, k: int, m: int, T: int):
+    """(bound_ms, bound_by, bytes, lookups) of one K3 call: every pool
+    byte read once, every parity byte and 4-byte crc written once, the
+    [8m, 8k] bit-matrix read once; one shared-memory lookup per data
+    byte per group of four parity rows, and one per crc'd byte (the
+    crc's table walk, data and parity rows alike)."""
+    nbytes = G * k * T + G * m * T + 4 * G * (k + m) + 64 * m * k
+    ops = G * T * k * (-(-m // 4)) + G * (k + m) * T
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SMEM_LOOKUPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def k3_plain(bitmat, pool, chunk: int = 256):
+    """K3's plain version over ``pool`` in chunks of blocks (it unpacks
+    32x): (parity, data crcs, parity crcs)."""
+    T = pool.shape[2]
+    A8, const = ragged_fused._crc_a8(T)
+    bm = torch.as_tensor(bitmat, device=pool.device)
+    a8 = torch.as_tensor(A8, device=pool.device)
+    parts = [ragged_fused.fused_block_math(bm, a8, const, pool[c:c + chunk])
+             for c in range(0, pool.shape[0], chunk)]
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+
+
+def k3_shapes(device, gen, main_pool: np.ndarray):
+    """K3's shapes: {name: (bitmat, pool)}; m = 0 pools are the crc leg."""
+    rng = np.random.default_rng(SEED + 3)
+
+    def data(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device=device, generator=gen)
+
+    rs42 = gf.gf8_bitmatrix(gf.isa_rs_parity(ZW_K, ZW_M))
+    edges = ragged_fused.pack([rng.integers(0, 256, (ZW_K, n),
+                                            dtype=np.uint8)
+                               for n in (1, 4096, 4097)]).pool
+    shapes = {
+        "zerowire_chunk": (rs42, torch.from_numpy(main_pool[:512]).to(device)),
+        "rs83": (gf.gf8_bitmatrix(gf.isa_rs_parity(8, 3)), data((64, 8, 4096))),
+        "k8m12_random": (rng.integers(0, 2, (96, 64), dtype=np.uint8),
+                         data((33, 8, 4096))),
+        "objects_1_4096_4097": (rs42, torch.from_numpy(edges).to(device)),
+    }
+    for T in (1, 64, 512, 4096):
+        shapes[f"crc_leg_{T}"] = (np.zeros((0, 8), dtype=np.uint8),
+                                  data((256, 1, T)))
+    return shapes
+
+
+def k3_checks(device, shapes) -> dict:
+    """K3 against its plain version on the card at each shape, and its
+    crcs of the first and last block against zlib on the host; fails on
+    any difference.  Returns {name: max_abs_err}."""
+    errs = {}
+    for name, (bitmat, pool) in shapes.items():
+        got = gf_pallas.fused_ragged_matmul(bitmat, pool)
+        want = k3_plain(bitmat, pool)
+        sync(device)
+        err = 0
+        for g, w in zip(got, want):
+            if g.numel():
+                err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"K3 differs from its plain version at {name}")
+        host, par = pool.cpu().numpy(), got[0].cpu().numpy()
+        for g in (0, host.shape[0] - 1):
+            if got[1][g].tolist() != [zlib.crc32(r.tobytes())
+                                      for r in host[g]] or \
+                    got[2][g].tolist() != [zlib.crc32(r.tobytes())
+                                           for r in par[g]]:
+                fail(f"K3's crcs differ from zlib at {name}")
+        errs[name] = err
+        m, k = bitmat.shape[0] // 8, bitmat.shape[1] // 8
+        emit({"phase": "kernel_check", "kernel": "ragged_fused",
+              "shape": name, "bitmat": list(bitmat.shape),
+              "pool": list(pool.shape), "max_abs_err": err,
+              "dynamic_smem_bytes": gf_pallas.fused_smem_bytes(m, k)[0]})
+    return errs
+
+
+def _reader(sock, n: int, key: bytes, sink, out: dict) -> None:
+    """Reader thread: ``n`` frames off ``sock`` (device verify inside
+    ``read_frame``), each handed to ``sink``; the first error lands in
+    ``out`` for the main thread to raise."""
+    from ceph_tpu_torch.msg import wire
+    rd = wire.SockReader(sock)
+    try:
+        for _ in range(n):
+            sink(rd.read_frame(session_key=key, mode=wire.MODE_CRC))
+    except BaseException as e:      # re-raised by the main thread
+        out["error"] = e
+
+
+def _stream(frames, key: bytes, sink, timeout: float = 900.0) -> None:
+    """Send ``frames`` [(type, id, meta, data, csums)] over a socket pair
+    while a reader thread verifies each and hands it to ``sink``; a dead
+    or hung reader fails the run."""
+    from ceph_tpu_torch.msg import wire
+    a, b = socket.socketpair()
+    for s in (a, b):
+        for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
+            s.setsockopt(socket.SOL_SOCKET, opt, 1 << 21)
+    out = {}
+    t = threading.Thread(target=_reader, args=(b, len(frames), key, sink,
+                                               out), daemon=True)
+    t.start()
+    try:
+        for typ, rid, meta, data, cs in frames:
+            if "error" in out:
+                break
+            wire.send_frame_sg(a, typ, rid, meta, data, session_key=key,
+                               mode=wire.MODE_CRC, data_csums=cs)
+    finally:
+        t.join(timeout)
+        a.close()
+        b.close()
+    if t.is_alive():
+        fail("zerowire: the reader thread hung")
+    if "error" in out:
+        raise out["error"]
+
+
+def zerowire_path(device, shards) -> dict:
+    """Phase 6: fused encode on the card, SG frames over a socket pair,
+    device receive verify, BlueStore commit with the verified csums, read
+    back with the trusted csums, reply frames verified on the card, one
+    flipped frame rejected.  Returns the step times and the counters read
+    around the path."""
+    from ceph_tpu_torch.cluster.bluestore import BlueStore
+    from ceph_tpu_torch.cluster.objectstore import Transaction
+    from ceph_tpu_torch.common import faults
+    from ceph_tpu_torch.msg import encoding, wire
+    n_rows = ZW_K + ZW_M
+    A = gf.isa_rs_parity(ZW_K, ZW_M)
+    lengths = [int(s.shape[1]) for s in shards]
+    blocks = sum(-(-L // 4096) for L in lengths)
+    key = np.random.default_rng(SEED).bytes(32)
+    coll = (1, 0)
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    stores = [BlueStore(os.path.join(STORE_DIR, f"shard{s}"),
+                        device_bytes=(blocks + 256) * 4096, min_alloc=4096)
+              for s in range(n_rows)]
+    times = {}
+    try:
+        sync(device)
+        gf_pallas.launches = 0
+        gf_pallas.fused_launches = 0
+        xor_kernel.launches = 0
+        plain0 = (gf_pallas.plain_runs, crc32_gf2.plain_runs,
+                  xor_kernel.plain_runs)
+        perf("wire.zero").reset()
+        torch.cuda.reset_peak_memory_stats()
+
+        # 1. the fused encode: parity and per-4 KiB csums, one K3 launch
+        t0 = time.perf_counter()
+        res = ragged_fused.encode(A, shards, device=device)
+        times["encode_s"] = time.perf_counter() - t0
+        encode_launches = gf_pallas.fused_launches
+
+        # 2-4. SG frames with the csums folded in, verified on the card,
+        # committed with the verified csums as blob csums
+        frames, heads, full, tails = [], 0, 0, 0
+        for i, sh in enumerate(shards):
+            rows = [sh[j] for j in range(ZW_K)] + list(res.parity[i])
+            css = res.data_csums[i] + res.parity_csums[i]
+            for s in range(n_rows):
+                meta = encoding.dumps({"cmd": "put_shard", "oid": f"o{i}",
+                                       "shard": s})
+                frames.append((wire.MSG_REQ_SG, len(frames) + 1, meta,
+                               np.ascontiguousarray(rows[s]), css[s]))
+                heads += 4 + len(meta)
+                full += lengths[i] - lengths[i] % 4096
+                tails += lengths[i] % 4096
+
+        def commit(env):
+            meta, data = wire.split_sg(env.payload)
+            req = encoding.loads(meta)
+            if env.csums is None:
+                fail("zerowire: a request frame arrived without csums")
+            stores[req["shard"]].apply_transaction(Transaction().write_full(
+                coll, req["oid"], data, csums=env.csums, copy=False))
+
+        t0 = time.perf_counter()
+        _stream(frames, key, commit)
+        times["ingest_s"] = time.perf_counter() - t0
+        stored = sum(f[3].nbytes for f in frames)
+        del frames
+
+        # 5. read back with the trusted csums; reply frames verified on
+        # the card and compared with the original shard bytes
+        want = {}
+        mismatched = []
+
+        def replies():
+            rid = 0
+            for i, sh in enumerate(shards):
+                for s in range(n_rows):
+                    rid += 1
+                    want[rid] = sh[s] if s < ZW_K else res.parity[i][s - ZW_K]
+                    data, cs = stores[s].read_with_csums(coll, f"o{i}")
+                    if cs is None:
+                        fail(f"zerowire: o{i} shard {s} read back without "
+                             f"trusted csums")
+                    yield (wire.MSG_REPLY_SG, rid,
+                           encoding.dumps({"oid": f"o{i}", "shard": s}),
+                           data, cs)
+
+        def check(env):
+            _meta, data = wire.split_sg(env.payload)
+            if env.type != wire.MSG_REPLY_SG or env.csums is None or \
+                    not np.array_equal(np.frombuffer(data, np.uint8),
+                                       want.pop(env.id)):
+                mismatched.append(env.id)
+
+        t0 = time.perf_counter()
+        reply_frames = list(replies())
+        times["read_with_csums_s"] = time.perf_counter() - t0
+        reply_heads = sum(4 + len(f[2]) for f in reply_frames)
+        t0 = time.perf_counter()
+        _stream(reply_frames, key, check)
+        times["reply_s"] = time.perf_counter() - t0
+        del reply_frames
+        if mismatched or want:
+            fail(f"zerowire: {len(mismatched) + len(want)} shards read back "
+                 f"wrong or missing")
+
+        # 6. one frame with a flipped bit is rejected (the first object
+        # of two blocks or more, its csums from the encode)
+        fi = next(i for i, L in enumerate(lengths) if L >= 8192)
+        flip, flip_cs = shards[fi][0], res.data_csums[fi][0]
+        flip_meta = encoding.dumps({"cmd": "put_shard", "oid": "flip"})
+        faults.arm("wire.flip_bit", mode="always", count=1)
+        try:
+            t0 = time.perf_counter()
+            try:
+                _stream([(wire.MSG_REQ_SG, 1, flip_meta, flip, flip_cs)],
+                        key, lambda env: None)
+            except wire.WireError as e:
+                times["flip_rejected"] = str(e)
+            else:
+                fail("zerowire: a frame with a flipped bit was accepted")
+            times["flip_s"] = time.perf_counter() - t0
+        finally:
+            faults.disarm("wire.flip_bit")
+        sync(device)
+        zero = perf("wire.zero").dump()
+        k3, k2, k1 = (gf_pallas.fused_launches, gf_pallas.launches,
+                      xor_kernel.launches)
+        plain1 = (gf_pallas.plain_runs, crc32_gf2.plain_runs,
+                  xor_kernel.plain_runs)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for st in stores:
+            st.close()
+        shutil.rmtree(STORE_DIR, ignore_errors=True)
+
+    flip_head = 4 + len(flip_meta)
+    flip_full = flip.nbytes - flip.nbytes % 4096
+    want_counts = {
+        "scan_send_bytes": heads + reply_heads + flip_head,
+        "scan_verify_bytes": heads + reply_heads + flip_head,
+        "scan_store_bytes": 0,
+        "scan_device_tail_bytes": 3 * tails + flip.nbytes % 4096,
+        "device_crc_bytes": 2 * full + flip_full,
+        "trusted_csum_bytes": stored,
+    }
+    got_counts = {k: zero.get(k, 0) for k in want_counts}
+    if got_counts != want_counts:
+        fail(f"zerowire: scan counters {got_counts}, wanted {want_counts}")
+    crc_dispatches = zero.get("device_crc_dispatches", 0)
+    if plain1 != plain0:
+        fail("zerowire: a plain version ran on the path")
+    if encode_launches != 1 or k3 != encode_launches + crc_dispatches or \
+            k2 or k1:
+        fail(f"zerowire: K3 launched {k3} times (encode {encode_launches}), "
+             f"the path made {crc_dispatches} crc dispatches; K2 {k2}, K1 {k1}")
+    return {"objects": len(shards), "k": ZW_K, "m": ZW_M,
+            "data_bytes": sum(lengths) * ZW_K,
+            "parity_bytes": sum(lengths) * ZW_M,
+            "pool_blocks": blocks, "full_block_payload_bytes": full,
+            "tail_bytes": tails, "frames": 2 * len(shards) * n_rows + 1,
+            "k3_launches": k3, "encode_launches": encode_launches,
+            "device_crc_dispatches": crc_dispatches,
+            "counters": got_counts, "max_memory_allocated": peak,
+            "res": res, **times}
+
+
+def zerowire_checks(device, shards, res) -> None:
+    """Outside the counted window: the path's parity against K2 on the
+    same pool, and every sub-crc against zlib on the host."""
+    batch = ragged_fused.pack(shards)
+    bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(ZW_K, ZW_M))
+    pool = torch.from_numpy(batch.pool).to(device)
+    k2 = gf_pallas.bitplane_matmul(bitmat, pool).cpu().numpy()
+    del pool
+    g = 0
+    for i, sh in enumerate(shards):
+        L = sh.shape[1]
+        n_blk = -(-L // 4096)
+        par = k2[g:g + n_blk].transpose(1, 0, 2).reshape(ZW_M, -1)[:, :L]
+        if not np.array_equal(par, res.parity[i]):
+            fail(f"zerowire: object {i}'s parity differs from K2's")
+        rows = [sh[j] for j in range(ZW_K)] + list(res.parity[i])
+        for row, cs in zip(rows, res.data_csums[i] + res.parity_csums[i]):
+            b = row.tobytes()
+            if cs.subs != [zlib.crc32(b[o:o + 4096])
+                           for o in range(0, L, 4096)] or \
+                    cs.combined != zlib.crc32(b) or cs.length != L:
+                fail(f"zerowire: object {i}'s csums differ from zlib")
+        g += n_blk
+
+
+def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
+            card: str) -> dict:
+    """K3's device time at the full ZeroWire pool and its crc leg at a
+    2 MiB frame (512 blocks) and at the ZeroWire path's mean verified
+    frame, beside their bounds and plain versions."""
+    out = {}
+    rs42 = gf.gf8_bitmatrix(gf.isa_rs_parity(ZW_K, ZW_M))
+    none = np.zeros((0, 8), dtype=np.uint8)
+    pool = torch.from_numpy(main_pool).to(device)
+    frame = torch.randint(0, 256, (512, 1, 4096), dtype=torch.uint8,
+                          device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(SEED))
+    for name, bitmat, data, iters in (
+            ("full_pool", rs42, pool, 10),
+            ("crc_leg_2MiB", none, frame, 50),
+            ("crc_leg_mean_frame", none, frame[:mean_frame_blocks], 50)):
+        G, k, T = data.shape
+        m = bitmat.shape[0] // 8
+        n0 = gf_pallas.fused_launches
+        ms = graph_ms(lambda: gf_pallas.fused_ragged_matmul(bitmat, data),
+                      iters=iters)
+        call_ms = cuda_ms(lambda: gf_pallas.fused_ragged_matmul(bitmat, data),
+                          iters=iters)
+        if gf_pallas.fused_launches - n0 != 2 + iters + 2 + iters:
+            fail("K3 timing: a wrapper call did not launch the kernel")
+        plain_ms = cuda_ms(lambda: k3_plain(bitmat, data, chunk=1024),
+                           iters=1, warmup=1)
+        bound_ms, bound_by, nbytes, ops = k3_bound(G, k, m, T)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        emit({"phase": "timing", "kernel": "ragged_fused", "shape": name,
+              "pool": [G, k, T], "m": m, "ms": ms, "call_ms": call_ms,
+              "plain_ms": plain_ms, "bytes": nbytes, "lookups": ops,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "lookups_ms": ops / SMEM_LOOKUPS_PER_S * 1e3,
+              "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+              "roofline_share": bound_ms / ms, "gpu": card})
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -749,11 +1145,17 @@ def main() -> int:
     errs = kernel_checks(device, shapes)
     shapes2 = k2_shapes(device, gen)
     errs2 = k2_checks(device, shapes2)
+    zw_shards = zerowire_shards()
+    zw_pool = ragged_fused.pack(zw_shards).pool
+    errs3 = k3_checks(device, k3_shapes(device, gen, zw_pool))
+    torch.cuda.empty_cache()
 
     # 3. the ECBackend data path, with the launch counts read around it
     xor_kernel.launches = 0
     gf_pallas.launches = 0
-    plain0 = (xor_kernel.plain_runs, gf_pallas.plain_runs)
+    gf_pallas.fused_launches = 0
+    plain0 = (xor_kernel.plain_runs, gf_pallas.plain_runs,
+              crc32_gf2.plain_runs)
     torch.cuda.reset_peak_memory_stats()
     path = run_slice(device, gen, n_objects=128,
                      obj_bytes=4 << 20, stripe_unit=128 << 10)
@@ -762,10 +1164,11 @@ def main() -> int:
     path["k1_launches"] = k1_slice
     path["gpu"] = card
     emit({"phase": "slice", **path})
-    if (xor_kernel.plain_runs, gf_pallas.plain_runs) != plain0:
+    if (xor_kernel.plain_runs, gf_pallas.plain_runs,
+            crc32_gf2.plain_runs) != plain0:
         fail("a plain version ran on the main path")
     if k1_slice != path["dispatches"] or k1_slice == 0 or \
-            gf_pallas.launches:
+            gf_pallas.launches or gf_pallas.fused_launches:
         fail(f"K1 launched {k1_slice} times on the main path; the path "
              f"makes {path['dispatches']} dispatches")
 
@@ -783,13 +1186,25 @@ def main() -> int:
         st["gpu"] = card
         emit({"phase": "cluster_step", **st})
         steps[layout] = st
-    if (xor_kernel.plain_runs, gf_pallas.plain_runs) != plain0:
-        fail("a plain version ran on the main path")
+    if (xor_kernel.plain_runs, gf_pallas.plain_runs,
+            crc32_gf2.plain_runs) != plain0 or gf_pallas.fused_launches:
+        fail("a plain version or K3 ran on the cluster paths")
 
-    # 6. numbers
+    # 6. the ZeroWire ingest path (its counts are read around it inside)
+    zw = zerowire_path(device, zw_shards)
+    zw_res = zw.pop("res")
+    zw["gpu"] = card
+    emit({"phase": "zerowire", **zw})
+    zerowire_checks(device, zw_shards, zw_res)
+    del zw_res
+    torch.cuda.empty_cache()
+
+    # 7. numbers
     t1 = time_k1(shapes, card)
     t2 = time_k2(shapes2, card)
-    enc1, enc2 = t1["encode"], t2["encode"]
+    t3 = time_k3(zw_pool, round(zw["counters"]["device_crc_bytes"] / 4096 /
+                                zw["device_crc_dispatches"]), device, card)
+    enc1, enc2, full3 = t1["encode"], t2["encode"], t3["full_pool"]
     emit({"kernels": [
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
@@ -806,6 +1221,14 @@ def main() -> int:
          "max_abs_err": max(errs2.values()),
          "ms": enc2["ms"], "plain_ms": enc2["plain_ms"],
          "bound_ms": enc2["bound_ms"], "bound_by": enc2["bound_by"],
+         "library_ms": None},
+        {"name": "ragged_fused", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/ragged_fused.cu",
+         "replaces": "ceph_tpu/ops/gf_pallas.py:83",
+         "launches": zw["k3_launches"],
+         "max_abs_err": max(errs3.values()),
+         "ms": full3["ms"], "plain_ms": full3["plain_ms"],
+         "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],
          "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

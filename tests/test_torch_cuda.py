@@ -1,5 +1,6 @@
-"""The port on the card: kernels K1 and K2 against their plain PyTorch
-versions, the fast mapper and the cluster step against the CPU.
+"""The port on the card: kernels K1, K2 and K3 against their plain
+PyTorch versions, the fast mapper, the cluster step and the fused ragged
+encode against the CPU, and the wire's receive verify on the card.
 
 Every test here needs an NVIDIA card and skips without one (the decision
 is made inside a fixture, never at import).  Run on the card with
@@ -7,8 +8,11 @@ is made inside a fixture, never at import).  Run on the card with
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 The file imports no JAX: its NumPy oracle is ceph_tpu/ops/gf2.py, which
-is NumPy-only.  GF(2) arithmetic: every comparison is exact.
+is NumPy-only, and zlib for crc32.  GF(2) arithmetic and crc32: every
+comparison is exact.
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -325,3 +329,143 @@ def test_cluster_step_on_card_equals_cpu(card, layout):
     assert got["gets"] == got["datas"] == want["datas"]
     for key in ("placed", "gets2", "rec", "up0", "up1", "victims"):
         assert got[key] == want[key], key
+
+
+# ------------------------------------------------------------------ K3 --
+
+def check_k3(card, bitmat, pool):
+    """K3 == its plain version on the card == zlib on the host (exact)."""
+    from ceph_tpu_torch.ops import ragged_fused
+    got = gf_pallas.fused_ragged_matmul(bitmat, pool)
+    A8, const = ragged_fused._crc_a8(pool.shape[2])
+    want = ragged_fused.fused_block_math(
+        torch.as_tensor(bitmat, device=card), torch.as_tensor(A8),
+        const, pool)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    host = pool.cpu().numpy()
+    par = got[0].cpu().numpy()
+    for g in (0, host.shape[0] - 1):
+        assert got[1][g].tolist() == [zlib.crc32(r.tobytes())
+                                      for r in host[g]]
+        assert got[2][g].tolist() == [zlib.crc32(r.tobytes())
+                                      for r in par[g]]
+    return got
+
+
+@pytest.mark.parametrize("name,k,m,G,T", [
+    ("rs42_chunk", 4, 2, 512, 4096),
+    ("rs83", 8, 3, 64, 4096),
+    ("k14m6", 14, 6, 9, 4096),
+    ("k4m16", 4, 16, 9, 4096),
+    ("ragged_T", 4, 2, 7, 4095),
+])
+def test_k3_matches_plain(card, name, k, m, G, T):
+    A = gf.isa_rs_parity(k, m)
+    pool = torch.from_numpy(rand_bytes((G, k, T), len(name))).to(card)
+    check_k3(card, gf.gf8_bitmatrix(A), pool)
+
+
+def test_k3_random_twenty_row_bitmatrix(card):
+    bm = np.random.default_rng(14).integers(0, 2, size=(96, 64),
+                                            dtype=np.uint8)
+    check_k3(card, bm, torch.from_numpy(rand_bytes((33, 8, 4096), 15))
+             .to(card))
+
+
+def test_k3_unaligned_pool(card):
+    flat = torch.from_numpy(rand_bytes(5 * 4 * 4096 + 1, 16)).to(card)
+    pool = flat[1:].view(5, 4, 4096)
+    assert pool.data_ptr() % 16 == 1
+    check_k3(card, gf.gf8_bitmatrix(gf.isa_rs_parity(4, 2)), pool)
+
+
+@pytest.mark.parametrize("T", [1, 3, 64, 512, 4095, 4096, 4097, 65536,
+                               1 << 20])
+def test_k3_crc_leg_every_block_size(card, T):
+    """m = 0: the wire's crc at every block size (no size is refused)."""
+    from ceph_tpu_torch.ops import crc32_gf2
+    blocks = torch.from_numpy(rand_bytes((3 if T > 65536 else 40, T), T)) \
+        .to(card)
+    launches = gf_pallas.fused_launches
+    got = crc32_gf2.crc32_blocks(blocks, block=T)
+    assert gf_pallas.fused_launches == launches + 1
+    want = [zlib.crc32(r.tobytes()) for r in blocks.cpu().numpy()]
+    assert got.tolist() == want
+    if T <= 4097:
+        assert crc32_gf2.crc32_blocks_plain(blocks).tolist() == want
+
+
+def test_k3_object_edges_on_card_equal_cpu(card):
+    from ceph_tpu_torch.ops import ragged_fused
+    A = gf.isa_rs_parity(4, 2)
+    rng = np.random.default_rng(17)
+    shards = [rng.integers(0, 256, (4, n), dtype=np.uint8)
+              for n in (1, 4096, 4097, 12289)]
+    got = ragged_fused.encode(A, shards, device=card)
+    want = ragged_fused.encode(A, shards, device="cpu")
+    for i in range(len(shards)):
+        assert np.array_equal(got.parity[i], want.parity[i])
+        for g, w in zip(got.data_csums[i] + got.parity_csums[i],
+                        want.data_csums[i] + want.parity_csums[i]):
+            assert (g.block, g.subs, g.length, g.combined) == \
+                (w.block, w.subs, w.length, w.combined)
+
+
+def test_k3_wrong_inputs_raise(card):
+    bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(4, 2))
+    with pytest.raises(TypeError):
+        gf_pallas.fused_ragged_matmul(
+            bitmat, torch.zeros((1, 4, 64), dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="contract"):
+        gf_pallas.fused_ragged_matmul(
+            bitmat, torch.zeros((1, 3, 64), dtype=torch.uint8, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        gf_pallas.fused_ragged_matmul(bitmat, torch.zeros(
+            (1, 64, 4), dtype=torch.uint8, device=card).transpose(-1, -2))
+    from ceph_tpu_torch.ops import ragged_fused
+    with pytest.raises(ValueError, match="CPU pool only"):
+        ragged_fused.encode(gf.isa_rs_parity(4, 2),
+                            [np.zeros((4, 9), np.uint8)], impl="xla",
+                            device=card)
+
+
+def test_k3_cuda_tensor_never_reaches_plain_version(card, monkeypatch):
+    from ceph_tpu_torch.ops import crc32_gf2, ragged_fused
+
+    def refuse(*_):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(ragged_fused, "fused_block_math", refuse)
+    monkeypatch.setattr(crc32_gf2, "crc32_blocks_plain", refuse)
+    runs, launches = gf_pallas.plain_runs, gf_pallas.fused_launches
+    crc_runs = crc32_gf2.plain_runs
+    ragged_fused.encode(gf.isa_rs_parity(4, 2),
+                        [rand_bytes((4, 9000), 18)], device=card)
+    crc32_gf2.crc32_blocks(rand_bytes((4, 4096), 19), device=card)
+    torch.cuda.synchronize()
+    assert gf_pallas.plain_runs == runs and crc32_gf2.plain_runs == crc_runs
+    assert gf_pallas.fused_launches == launches + 2
+
+
+def test_receive_verify_auto_runs_k3_on_the_card(card):
+    import ceph_tpu_torch
+    from ceph_tpu_torch.common import crcutil
+    from ceph_tpu_torch.common.perf_counters import perf
+    from ceph_tpu_torch.msg import wire
+    prev = ceph_tpu_torch.default_device()
+    ceph_tpu_torch.set_default_device("cuda")
+    try:
+        data = rand_bytes(5 * 4096 + 3, 20).tobytes()
+        launches = gf_pallas.fused_launches
+        z0 = perf("wire.zero").dump()
+        cs = wire.receive_csums(memoryview(data))
+        z1 = perf("wire.zero").dump()
+    finally:
+        ceph_tpu_torch.set_default_device(prev)
+    assert gf_pallas.fused_launches == launches + 1
+    assert z1.get("device_crc_bytes", 0) - z0.get("device_crc_bytes", 0) \
+        == 5 * 4096
+    assert z1.get("scan_verify_bytes", 0) == z0.get("scan_verify_bytes", 0)
+    want = crcutil.Csums.scan(data, site="test")
+    assert (cs.subs, cs.combined) == (want.subs, want.combined)

@@ -32,7 +32,18 @@ def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in port_files()}
     for want in ("ceph_tpu_torch/ops/xor_kernel.py",
                  "ceph_tpu_torch/ec/plugin_jax.py",
-                 "ceph_tpu_torch/cluster/ec_backend.py", "chip_smoke.py"):
+                 "ceph_tpu_torch/cluster/ec_backend.py", "chip_smoke.py",
+                 "ceph_tpu_torch/ops/ragged_fused.py",
+                 "ceph_tpu_torch/ops/crc32_gf2.py",
+                 "ceph_tpu_torch/common/crcutil.py",
+                 "ceph_tpu_torch/common/auth.py",
+                 "ceph_tpu_torch/common/compressor.py",
+                 "ceph_tpu_torch/msg/wire.py",
+                 "ceph_tpu_torch/msg/shm_ring.py",
+                 "ceph_tpu_torch/cluster/blockdev.py",
+                 "ceph_tpu_torch/cluster/kv.py",
+                 "ceph_tpu_torch/cluster/wal_kv.py",
+                 "ceph_tpu_torch/cluster/bluestore.py"):
         assert want in names
 
 

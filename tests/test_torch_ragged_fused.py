@@ -1,0 +1,348 @@
+"""The port's fused ragged encode (ops/ragged_fused.py) and the host side
+of kernel K3 against ceph_tpu.
+
+The reference's Pallas kernel does not run on the CPU; the JAX package's
+own tests hold ``ragged_fused.encode`` (its XLA route) to
+``encode_padded`` and zlib, and so does this file, on the port's plain
+version.  Every comparison is exact (GF(2^8) parity and crc32 have no
+tolerance):
+
+  * the port's ``encode`` and ``encode_padded`` equal the reference's
+    ``encode`` and ``encode_padded`` — parity bytes and every Csums
+    (block, subs, length, combined) — at 1-byte, exact-block and
+    tail-block objects;
+  * the crcs equal zlib row by row; the padding arithmetic and the
+    ``unfused`` / ``device_tail`` scan counters match the reference's;
+  * the port's ``fused_block_math`` (K3's plain version) equals the
+    reference's at RS(4,2), RS(8,3) and a random bit-matrix;
+  * a NumPy emulation of K3's crc walk (32 lane segments, slicing-by-4
+    tables, the host's lane operators, the XOR fold) equals zlib at
+    every block size class, so the operators the card reads are held
+    here;
+  * ``impl="pallas"`` and ``impl="plane"`` on the CPU raise (the
+    reference falls back to its XLA route; the port does not).
+"""
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu.ops import gf as ref_gf
+from ceph_tpu.ops import ragged_fused as ref_rf
+from ceph_tpu_torch.common import crcutil
+from ceph_tpu_torch.common.options import config
+from ceph_tpu_torch.common.perf_counters import perf
+from ceph_tpu_torch.ops import gf, gf_pallas, ragged_fused
+
+K, M = 4, 2
+SIZES = [1, 5, 700, 4096, 4097, 8192, 12289]
+
+
+def _shards(rng, sizes, k=K):
+    return [rng.integers(0, 256, (k, n), dtype=np.uint8) for n in sizes]
+
+
+def _assert_identical(got, want):
+    assert len(got.parity) == len(want.parity)
+    for i, (gp, wp) in enumerate(zip(got.parity, want.parity)):
+        gp, wp = np.asarray(gp), np.asarray(wp)
+        assert gp.shape == wp.shape, i
+        assert (gp == wp).all(), f"object {i}: parity bytes diverge"
+    for name, gl, wl in (("data", got.data_csums, want.data_csums),
+                         ("parity", got.parity_csums, want.parity_csums)):
+        assert len(gl) == len(wl)
+        for i, (grow, wrow) in enumerate(zip(gl, wl)):
+            assert len(grow) == len(wrow)
+            for j, (g, w) in enumerate(zip(grow, wrow)):
+                assert (g.block, g.subs, g.length, g.combined) == \
+                    (w.block, w.subs, w.length, w.combined), \
+                    f"object {i} {name} row {j} csums diverge"
+
+
+@pytest.fixture(scope="module")
+def batch():
+    rng = np.random.default_rng(20)
+    return gf.isa_rs_parity(K, M), _shards(rng, SIZES)
+
+
+def test_parity_matrix_is_the_references(batch):
+    A, _ = batch
+    assert (A == ref_gf.isa_rs_parity(K, M)).all()
+
+
+@pytest.mark.parametrize("fn", ["encode", "encode_padded"])
+def test_port_equals_reference_encode(batch, fn):
+    A, shards = batch
+    want = ref_rf.encode(A, shards)
+    got = getattr(ragged_fused, fn)(A, shards, device="cpu")
+    _assert_identical(got, want)
+
+
+def test_port_encode_equals_reference_padded(batch):
+    A, shards = batch
+    _assert_identical(ragged_fused.encode(A, shards, device="cpu"),
+                      ref_rf.encode_padded(A, shards))
+
+
+def test_fused_csums_match_zlib_oracle():
+    rng = np.random.default_rng(21)
+    A = gf.isa_rs_parity(K, M)
+    shards = _shards(rng, [4097, 100, 8192])
+    res = ragged_fused.encode(A, shards, device="cpu")
+    T = ragged_fused.TILE
+    for i, s in enumerate(shards):
+        L = int(s.shape[1])
+        for j in range(K):
+            cs = res.data_csums[i][j]
+            row = s[j].tobytes()
+            assert cs.length == L and cs.block == T
+            assert cs.subs == [zlib.crc32(row[o:o + T])
+                               for o in range(0, L, T)]
+            assert cs.combined == zlib.crc32(row)
+        for j in range(M):
+            cs = res.parity_csums[i][j]
+            row = res.parity[i][j].tobytes()
+            assert cs.subs == [zlib.crc32(row[o:o + T])
+                               for o in range(0, L, T)]
+            assert cs.combined == zlib.crc32(row)
+
+
+@pytest.mark.parametrize("n", [1, ragged_fused.TILE, ragged_fused.TILE + 1])
+def test_single_object_degenerate_batches(n):
+    rng = np.random.default_rng(22 + n)
+    A = gf.isa_rs_parity(K, M)
+    shards = _shards(rng, [n])
+    got = ragged_fused.encode(A, shards, device="cpu")
+    _assert_identical(got, ragged_fused.encode_padded(A, shards,
+                                                      device="cpu"))
+    _assert_identical(got, ref_rf.encode(A, shards))
+
+
+def test_padding_accounting_is_arithmetic():
+    rng = np.random.default_rng(23)
+    sizes = [1, 4096, 100_000, 257]
+    shards = _shards(rng, sizes)
+    b = ragged_fused.pack(shards)
+    ref = ref_rf.pack(shards)
+    T = b.tile
+    rect = len(sizes) * (K + M) * max(sizes)
+    fused = sum(-(-n // T) for n in sizes) * (K + M) * T
+    assert b.rect_bytes(M) == rect == ref.rect_bytes(M)
+    assert b.fused_bytes(M) == fused == ref.fused_bytes(M)
+    assert b.padding_avoided(M) == rect - fused == ref.padding_avoided(M)
+    assert b.padding_avoided(M) > 0
+    assert (b.pool == ref.pool).all() and (b.desc == ref.desc).all()
+    uni = ragged_fused.pack(_shards(rng, [T, T, T]))
+    assert uni.padding_avoided(M) == 0
+
+
+def test_pack_rejects_what_the_reference_rejects():
+    with pytest.raises(ValueError, match="empty ragged batch"):
+        ragged_fused.pack([])
+    with pytest.raises(ValueError, match="empty object"):
+        ragged_fused.pack([np.zeros((K, 0), np.uint8)])
+    with pytest.raises(ValueError, match="want"):
+        ragged_fused.pack([np.zeros((K, 3), np.uint8),
+                           np.zeros((K + 1, 3), np.uint8)])
+
+
+def test_unfused_comparator_pays_the_counted_scan():
+    """encode_padded scans every data+parity row at ``unfused``; the
+    fused path's host traffic is exactly the sub-tile tails."""
+    rng = np.random.default_rng(24)
+    A = gf.isa_rs_parity(K, M)
+    shards = _shards(rng, [8192, 4097])
+    pc = perf("wire.zero")
+    u0 = pc.dump().get("scan_unfused_bytes", 0)
+    t0 = pc.dump().get("scan_device_tail_bytes", 0)
+    ragged_fused.encode_padded(A, shards, device="cpu")
+    u1 = pc.dump().get("scan_unfused_bytes", 0)
+    assert u1 - u0 == (K + M) * (8192 + 4097)
+    ragged_fused.encode(A, shards, device="cpu")
+    t1 = pc.dump().get("scan_device_tail_bytes", 0)
+    assert pc.dump().get("scan_unfused_bytes", 0) == u1
+    assert t1 - t0 == (K + M) * (4097 % ragged_fused.TILE)
+
+
+def _ref_block_math(bitmat, pool):
+    fn = ref_rf._jit_fused(pool.shape[2])
+    par, dcrc, pcrc = fn(jnp.asarray(bitmat, jnp.int8),
+                         jnp.asarray(pool, jnp.uint8))
+    return (np.asarray(par), np.asarray(dcrc).astype(np.int64),
+            np.asarray(pcrc).astype(np.int64))
+
+
+@pytest.mark.parametrize("case", ["rs42", "rs83", "random"])
+def test_fused_block_math_equals_reference(case):
+    rng = np.random.default_rng({"rs42": 30, "rs83": 31, "random": 32}[case])
+    if case == "random":
+        k, m = 5, 6
+        bitmat = rng.integers(0, 2, (8 * m, 8 * k), dtype=np.uint8)
+    else:
+        k, m = (4, 2) if case == "rs42" else (8, 3)
+        bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(k, m))
+    pool = rng.integers(0, 256, (3, k, 4096), dtype=np.uint8)
+    A8, const = ragged_fused._crc_a8(4096)
+    rA8, rconst = ref_rf._crc_a8(4096)
+    assert const == rconst and (A8 == rA8).all()
+    got = ragged_fused.fused_block_math(
+        torch.from_numpy(bitmat), torch.from_numpy(A8), const,
+        torch.from_numpy(pool))
+    want = _ref_block_math(bitmat, pool)
+    for g, w in zip(got, want):
+        assert (g.numpy() == w).all()
+    assert got[1][0, 0].item() == zlib.crc32(pool[0, 0].tobytes())
+
+
+def test_wrapper_on_cpu_runs_the_plain_version():
+    rng = np.random.default_rng(33)
+    bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(K, M))
+    pool = torch.from_numpy(rng.integers(0, 256, (2, K, 512),
+                                         dtype=np.uint8))
+    n0, p0 = gf_pallas.fused_launches, gf_pallas.plain_runs
+    par, dcrc, pcrc = gf_pallas.fused_ragged_matmul(bitmat, pool)
+    assert gf_pallas.fused_launches == n0
+    assert gf_pallas.plain_runs == p0 + 1
+    want = _ref_block_math(bitmat, pool.numpy())
+    assert (par.numpy() == want[0]).all()
+    assert (dcrc.numpy() == want[1]).all() and (pcrc.numpy() == want[2]).all()
+    assert dcrc.dtype == torch.int64
+
+
+def test_wrapper_rejects_bad_inputs():
+    bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(K, M))
+    with pytest.raises(TypeError):
+        gf_pallas.fused_ragged_matmul(bitmat, np.zeros((1, K, 8), np.uint8))
+    with pytest.raises(TypeError):
+        gf_pallas.fused_ragged_matmul(bitmat, torch.zeros((1, K, 8),
+                                                          dtype=torch.int32))
+    with pytest.raises(ValueError, match="does not contract"):
+        gf_pallas.fused_ragged_matmul(bitmat, torch.zeros(
+            (1, K + 1, 8), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="pool must be"):
+        gf_pallas.fused_ragged_matmul(bitmat, torch.zeros(
+            (K, 8), dtype=torch.uint8))
+
+
+# ------------------------------------------------ K3's crc walk, emulated --
+
+def _slice4_tables():
+    t0 = []
+    for v in range(256):
+        c = v
+        for _ in range(8):
+            c = (c >> 1) ^ (0xEDB88320 if c & 1 else 0)
+        t0.append(c)
+    tabs = [t0]
+    for _ in range(3):
+        prev = tabs[-1]
+        tabs.append([(c >> 8) ^ t0[c & 0xFF] for c in prev])
+    return tabs
+
+
+def _k3_crc_emulated(row: bytes, lanes: np.ndarray) -> int:
+    """The kernel's crc of one T-byte row: lane p walks its segment 16
+    bytes at a time (whole words by slicing-by-4, a partial word byte by
+    byte), its register is carried to the end of the row by its operator
+    (32 conditional XORs of columns [i, p]), the warp XORs the lanes and
+    XORs in crc32(0^T)."""
+    t = _slice4_tables()
+    T = len(row)
+    S = -(-T // 32)
+    fold = 0
+    for p in range(32):
+        s0 = min(p * S, T)
+        s1 = min(s0 + S, T)
+        c = 0
+        for c0 in range(s0, s1, 16):
+            n = min(16, s1 - c0)
+            chunk = row[c0:c0 + n]
+            for q in range(4):
+                if 4 * q + 4 <= n:
+                    c ^= int.from_bytes(chunk[4 * q:4 * q + 4], "little")
+                    c = (t[3][c & 0xFF] ^ t[2][(c >> 8) & 0xFF] ^
+                         t[1][(c >> 16) & 0xFF] ^ t[0][c >> 24])
+                else:
+                    for b in chunk[4 * q:n]:
+                        c = t[0][(c ^ b) & 0xFF] ^ (c >> 8)
+        v = 0
+        for i in range(32):
+            if (c >> i) & 1:
+                v ^= int(lanes[i, p])
+        fold ^= v
+    return fold ^ zlib.crc32(bytes(T))
+
+
+@pytest.mark.parametrize("T", [1, 3, 17, 64, 512, 600, 4095, 4096])
+def test_kernel_crc_walk_emulated_equals_zlib(T):
+    rng = np.random.default_rng(40 + T)
+    lanes = gf_pallas.lane_operators(T)
+    assert lanes.shape == (32, 32) and lanes.dtype == np.uint32
+    for _ in range(2):
+        row = rng.integers(0, 256, T, dtype=np.uint8).tobytes()
+        assert _k3_crc_emulated(row, lanes) == zlib.crc32(row)
+
+
+def test_lane_operators_are_zero_advances():
+    """Column i of lane p's operator is Z^(T - end_p) applied to 1 << i:
+    advancing a register through n zero bytes equals crc32_combine's
+    advance (checked on one bit per lane)."""
+    T = 4096
+    lanes = gf_pallas.lane_operators(T)
+    for p in (0, 5, 31):
+        n = T - 128 * (p + 1)
+        assert int(lanes[7, p]) == crcutil.crc32_combine(1 << 7, 0, n)
+    assert int(lanes[3, 31]) == 1 << 3       # the last lane: identity
+
+
+# ------------------------------------------------------ the divergences --
+
+def test_pallas_and_plane_raise_on_the_cpu():
+    """The reference runs ``impl="pallas"`` off-TPU through its XLA route
+    and ``impl="plane"`` on its data plane; the port has no fallback
+    (ROADMAP section C) and no plane yet (queue A, item 7)."""
+    rng = np.random.default_rng(27)
+    A = gf.isa_rs_parity(K, M)
+    shards = _shards(rng, [4097])
+    with pytest.raises(ValueError, match="CUDA pool"):
+        ragged_fused.encode(A, shards, impl="pallas", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ragged_fused.encode(A, shards, impl="plane", device="cpu")
+    config().set("parallel_data_plane", True)
+    try:
+        with pytest.raises(NotImplementedError, match="item 7"):
+            ragged_fused.encode(A, shards, device="cpu")
+    finally:
+        config().clear("parallel_data_plane")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ragged_fused.encode(A, shards, impl="tpu", device="cpu")
+    _assert_identical(ragged_fused.encode(A, shards, impl="xla",
+                                          device="cpu"),
+                      ref_rf.encode_padded(A, shards))
+
+
+def test_encode_without_a_card_raises_unless_the_cpu_is_asked():
+    import ceph_tpu_torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    A = gf.isa_rs_parity(K, M)
+    shards = _shards(np.random.default_rng(29), [10])
+    assert ceph_tpu_torch.default_device() == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ragged_fused.encode(A, shards)
+
+
+def test_zipf_profile_fused_wins_padding():
+    """The S3Serve mixed-size shape (the reference bench's profile):
+    the padded rectangle pays for the largest object on every row."""
+    rng = np.random.default_rng(28)
+    sizes = np.clip((rng.zipf(1.3, 32).astype(float) * 512
+                     ).astype(np.int64), 1, 256 << 10).tolist()
+    shards = _shards(rng, sizes)
+    b = ragged_fused.pack(shards)
+    assert b.padding_avoided(M) == b.rect_bytes(M) - b.fused_bytes(M)
+    assert b.padding_avoided(M) == ref_rf.pack(shards).padding_avoided(M)
+    if len(set(sizes)) > 1:
+        assert b.padding_avoided(M) > 0
