@@ -11,57 +11,59 @@
 // planes once and feeds both the GF(2^8) matmul and the crc's GF(2)
 // contraction (crc32_gf2.crc_matrix) on the matrix unit.  Neither product
 // suits tensor cores at these shapes, so K3 keeps the math but changes the
-// engine: the parity is K2's byte-table product (gf_bitplane.cu, packed
-// tables of four output rows per 32-bit entry, shared code in
-// gf_common.cuh), and the crc is zlib's own table-driven register walk.
-// The crc is affine over GF(2) for a fixed length T:
+// engine to table lookups.  The crc is affine over GF(2) for a fixed T:
 //
 //     crc32(row) = L(row) ^ crc32(0^T),   L(a || b) = Z^|b|(L(a)) ^ L(b)
 //
 // with L the register walk from 0 without the final inversion and Z^n the
 // 32x32 GF(2) operator that advances a register through n zero bytes
-// (ops/crc32_gf2.py and common/crcutil.py hold the same algebra).  So each
-// lane of a warp walks its own contiguous 1/32 of the row, the host hands
-// every lane the operator Z^n that carries its partial crc past the bytes
-// after its segment, and the warp XOR-reduces with shuffles.
+// (ops/gf_pallas.py builds every table below from common/crcutil.py).
 //
-// The design: one warp per staged block g (grid-stride over the pool); lane
-// p owns columns [pS, pS + S) of every row, S = ceil(T/32), and walks them
-// 16 bytes at a time.  For each 16 bytes it loads the k data rows (one
-// 16-byte load each where T % 512 == 0 and the pointers are aligned, byte
-// loads otherwise), advances each data row's crc register, XORs the parity
-// tables into G x 16 accumulators, then transposes the accumulators to the
-// parity rows' bytes, advances each parity row's crc register from those
-// bytes (the parity never leaves registers before its crc is taken), and
-// stores them.  The crc registers live in shared memory, one word per
-// (row, thread), so any k + m up to 20 fits without spilling.  The crc walk
-// is slicing-by-4 over four 1 KiB tables built in shared memory at block
-// start; a lane's final shift is 32 conditional XORs of its operator's
-// columns, also in shared memory (column-major by lane: conflict-free).
-// More than 16 parity rows go in passes of up to four row groups; data crcs
-// are taken in the first pass.  m = 0 is the crc leg alone, which serves the
-// wire's receive verify (crc32_gf2.crc32_blocks, blocks viewed as an
-// [N, 1, T] pool) at any block size T >= 1.  Offsets are 64-bit.
+// The design.  A block of 256 threads takes one staged block g at a time
+// (grid-stride over the pool, one block per staged block while the pool is
+// small) and covers each row 4096 bytes (a chunk) at a time: thread t owns
+// bytes [16t, 16t + 16) of the chunk, so every warp load is 512 contiguous
+// bytes.  For each data row the thread
+//   * walks its 16 bytes from 0 through the slicing tables: 32 independent
+//     lookups (no serial chain), Z^(15-i) L(byte i) split by nibble;
+//   * XORs K2's packed parity tables (four parity rows per 32-bit entry),
+//     also split by nibble, into G x 16 accumulators.
+// Then it transposes the accumulators to the parity rows' bytes, walks them
+// the same way (the parity never leaves registers before its crc is taken)
+// and stores them.  At a row's last chunk each thread carries its crc to the
+// end of its warp's 512 bytes (its lane operator Z^(16(31-lane))), the warp
+// XORs its lanes with shuffles, and eight threads per row carry the eight
+// warp crcs to the row's end (warp operators, which also undo the zero
+// padding past T) and XOR them.  A row longer than one chunk keeps a running
+// crc per thread in shared memory, rolled over each chunk by Z^4096.
 //
-// What bounds it on an H100 SXM, at the smoke's main-path pool (41,093
+// Every table is GF(2)-linear in its index, so each is split into 16-entry
+// nibble tables: a warp reading one touches at most 16 words in 16 banks
+// (equal words broadcast), free of bank conflicts; the lane operators are
+// stored lane-major, one bank per lane.  The tables are built once on the
+// host and cached on the card; each block copies them into shared memory
+// with 16-byte loads after issuing its first data load.
+//
+// What bounds it on an H100 SXM, at the smoke's main-path pool (41,670
 // blocks of RS(4,2), T = 4096):
-//   * bytes: 41,093 x 6 x 4096 B (each data byte read once, each parity byte
-//     written once) + 8 B of crc per row = 1.01e9 B, 0.30 ms at 3.35 TB/s;
-//   * shared-memory lookups: parity 41,093 x 4096 x k x ceil(m/4) = 0.67e9
-//     (one lookup per data byte serves up to four parity rows) and crc
-//     41,093 x 6 x 4096 = 1.01e9 (one per byte, slicing or not), 1.68e9 at
-//     the 8.36e12 lookups/s of one 32-lane wavefront per clock per SM:
-//     0.20 ms;
-//   * bound: the larger, 0.30 ms, set by the bytes.
-// Random table indices hit random banks (several wavefronts per warp
-// lookup), and a lane's 16-byte loads touch 32 lines per warp instruction
-// (its neighbours' segments lie S bytes away; L1 serves the rest of each
-// line).  Conflict-free table layouts and staged coalesced loads are later
-// work.
+//   * bytes: 41,670 x 6 x 4096 B (each data byte read once, each parity byte
+//     written once) + 8 B of crc per row = 1.03e9 B, 0.31 ms at 3.35 TB/s;
+//   * table lookups, counted as the work needs them (one per data byte per
+//     group of four parity rows, one per crc'd byte): 1.71e9 at one 32-lane
+//     wavefront per clock per SM, 0.20 ms;
+//   * bound: the larger, 0.31 ms, set by the bytes.
+// The nibble split doubles the lookups the kernel issues (3.9e9 at RS(4,2),
+// with the lane operators): 0.47 ms of shared-memory wavefronts, so the
+// lookups and their index arithmetic, not the bytes, set its time.
 //
-// Plain C interface, bound with ctypes.  The launch goes on the caller's
-// stream and never synchronizes; the return value is cudaGetLastError() after
-// the launches (0 = launched).
+// Any T >= 1, k + m up to 20 in shared memory (passes of up to four parity
+// row groups, data crcs in the first), 64-bit offsets, 16-byte loads where
+// T % 16 == 0 and the pointers are aligned (byte loads otherwise), m = 0 as
+// the wire's receive verify (crc32_gf2.crc32_blocks).  Plain C interface,
+// bound with ctypes.  The launch goes on the caller's stream and never
+// synchronizes; the occupancy, SM count and shared-memory limit are asked
+// once, so a call captured into a CUDA graph queries nothing.  The return
+// value is cudaGetLastError() after the launches (0 = launched).
 
 #include <climits>
 #include <cstdint>
@@ -71,112 +73,171 @@
 
 namespace {
 
-constexpr int kWarps = 8;                          // warps (blocks g) per block
-constexpr int kThreads = 32 * kWarps;
-constexpr uint32_t kPoly = 0xEDB88320u;            // reflected CRC-32 (zlib)
-constexpr int kCrcWords = 4 * 256;                 // slicing-by-4 tables
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr long long kChunk = 16LL * kThreads;     // row bytes per step
+// the host's crc tables (gf_pallas.crc_tables), in this order
+constexpr int kSliceWords = 16 * 2 * 16;          // [byte i][nibble h][n]
+constexpr int kLaneWords = 8 * 16 * 32;           // [nibble j][n][lane]
+constexpr int kRollWords = 8 * 16;                // [nibble j][n]: Z^4096
+constexpr int kCrcWords = kSliceWords + kLaneWords + kRollWords;
+constexpr int kWarpOpWords = 32 * kWarps;         // [bit][warp]
+constexpr int kNibWords = 32;                     // per (group, data row)
 
-// one register step over a whole little-endian word (slicing-by-4)
-__device__ __forceinline__ uint32_t crc_word(uint32_t c, uint32_t w,
-                                             const uint32_t* t) {
-    c ^= w;
-    return t[768 + (c & 0xFFu)] ^ t[512 + ((c >> 8) & 0xFFu)] ^
-           t[256 + ((c >> 16) & 0xFFu)] ^ t[c >> 24];
+__device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src,
+                                           int n, int tid) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (int i = tid; i < n / 4; i += kThreads) d[i] = __ldg(s + i);
 }
 
-// advance register c over the first n (<= 16) bytes of w[0..3]
+// bytes [pos, pos + 16) of a T-byte row (zeros past T)
 template <bool VEC>
-__device__ __forceinline__ uint32_t crc16(uint32_t c, const uint32_t (&w)[4],
-                                          long long n, const uint32_t* t) {
+__device__ __forceinline__ void load_piece(const uint8_t* row, long long pos,
+                                           long long T, uint32_t (&w)[4]) {
+    if (VEC && pos >= T) {
+        w[0] = w[1] = w[2] = w[3] = 0;
+        return;
+    }
+    load16<VEC>(row + pos, T - pos, w);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store_piece(uint8_t* o, long long left,
+                                            const uint32_t (&w)[4]) {
     if constexpr (VEC) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) c = crc_word(c, w[q], t);
+        *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
     } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            if (4 * q + 4 <= n) {
-                c = crc_word(c, w[q], t);
-            } else {
+        for (int p = 0; p < 16; ++p)
+            if (p < left)
+                o[p] = static_cast<uint8_t>(w[p >> 2] >> (8 * (p & 3)));
+    }
+}
+
+// the walk from 0 over 16 bytes: XOR of 32 nibble lookups
+__device__ __forceinline__ uint32_t seg_crc(const uint32_t (&w)[4],
+                                            const uint32_t* sl) {
+    uint32_t c = 0;
 #pragma unroll
-                for (int s = 0; s < 4; ++s)
-                    if (4 * q + s < n)
-                        c = t[(c ^ (w[q] >> (8 * s))) & 0xFFu] ^ (c >> 8);
-            }
-        }
+    for (int i = 0; i < 16; ++i) {
+        const uint32_t x = w[i >> 2] >> (8 * (i & 3));
+        c ^= sl[32 * i + (x & 15u)] ^ sl[32 * i + 16 + ((x >> 4) & 15u)];
     }
     return c;
+}
+
+// a 32x32 GF(2) operator as eight nibble tables t[(16j + n) * STRIDE]
+template <int STRIDE>
+__device__ __forceinline__ uint32_t nib_apply(uint32_t v, const uint32_t* t) {
+    uint32_t out = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+        out ^= t[(16 * j + ((v >> (4 * j)) & 15u)) * STRIDE];
+    return out;
+}
+
+// acc[g][p] ^= T_g[byte p of w], the tables of one data row split by nibble
+// (low nibble's 16 entries, then the high nibble's; groups gstride apart)
+template <int G>
+__device__ __forceinline__ void nib_table_xor(
+        uint32_t (&acc)[G > 0 ? G : 1][16], const uint32_t (&w)[4],
+        const uint32_t* tj, int gstride) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+        const uint32_t* t = tj + g * gstride;
+#pragma unroll
+        for (int p = 0; p < 16; ++p) {
+            const uint32_t x = w[p >> 2] >> (8 * (p & 3));
+            acc[g][p] ^= t[x & 15u] ^ t[16 + ((x >> 4) & 15u)];
+        }
+    }
 }
 
 // G packed parity row groups in this pass (0 = the crc leg alone)
 template <int G, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-ragged_fused_kernel(const uint32_t* __restrict__ tab,     // [G][k][256]
-                    const uint32_t* __restrict__ lanemat, // [32 col][32 lane]
-                    const uint8_t* __restrict__ pool,     // [NG][k][T]
-                    uint8_t* __restrict__ parity,         // [NG][m][T]
-                    uint32_t* __restrict__ dcrc,          // [NG][k]
-                    uint32_t* __restrict__ pcrc,          // [NG][m]
+ragged_fused_kernel(const uint32_t* __restrict__ ptab,     // [G][k][32]
+                    const uint32_t* __restrict__ crc_tab,  // kCrcWords
+                    const uint32_t* __restrict__ warp_op,  // [32][8]
+                    const uint8_t* __restrict__ pool,      // [NG][k][T]
+                    uint8_t* __restrict__ parity,          // [NG][m][T]
+                    long long* __restrict__ dcrc,          // [NG][k]
+                    long long* __restrict__ pcrc,          // [NG][m]
                     long long NG, int k, int m, int row0, int rows,
                     long long T, uint32_t crc0, int do_dcrc) {
-    extern __shared__ uint32_t smem[];
-    uint32_t* stab = smem;                                // G * k * 256
-    uint32_t* ctab = stab + G * k * kTableWords;          // 4 * 256
-    uint32_t* smat = ctab + kCrcWords;                    // 32 * 32
-    uint32_t* state = smat + 32 * 32;                     // (k + rows) * kThreads
+    extern __shared__ uint4 smem4[];
+    uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
+    const uint32_t* sl = smem;
+    const uint32_t* lop = sl + kSliceWords;
+    const uint32_t* roll = lop + kLaneWords;
+    uint32_t* wop = smem + kCrcWords;
+    uint32_t* stab = wop + kWarpOpWords;
+    const int nrows = k + rows;              // crc'd rows: data, then parity
+    uint32_t* part = stab + G * k * kNibWords;      // [nrows][warp]
+    uint32_t* state = part + nrows * kWarps;        // [nrows][thread]
 
     const int tid = threadIdx.x;
-    for (int i = tid; i < G * k * kTableWords; i += kThreads) stab[i] = tab[i];
-    for (int i = tid; i < 32 * 32; i += kThreads) smat[i] = lanemat[i];
-    for (int v = tid; v < 256; v += kThreads) {
-        uint32_t c = static_cast<uint32_t>(v);
-#pragma unroll
-        for (int b = 0; b < 8; ++b) c = (c >> 1) ^ (kPoly & (0u - (c & 1u)));
-        ctab[v] = c;
-    }
-    __syncthreads();
-    for (int s = 1; s < 4; ++s) {
-        for (int v = tid; v < 256; v += kThreads) {
-            const uint32_t c = ctab[(s - 1) * 256 + v];
-            ctab[s * 256 + v] = (c >> 8) ^ ctab[c & 0xFFu];
-        }
-        __syncthreads();
-    }
-
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const long long S = (T + 31) / 32;
-    const long long seg0 = lane * S < T ? lane * S : T;
-    const long long seg1 = seg0 + S < T ? seg0 + S : T;
-    const int tstride = k * kTableWords;
-    const int nrows = k + rows;                  // crc registers: data, parity
-    uint32_t* st = state + tid;
+    const long long nc = (T + kChunk - 1) / kChunk;
+    const long long off = 16LL * tid;
+    const long long stride = gridDim.x;
 
-    for (long long g = static_cast<long long>(blockIdx.x) * kWarps + warp;
-         g < NG; g += static_cast<long long>(gridDim.x) * kWarps) {
+    // the first piece is in flight while the tables are copied
+    long long g = blockIdx.x;
+    uint32_t nxt[4] = {0, 0, 0, 0};
+    if (g < NG) load_piece<VEC>(pool + g * k * T, off, T, nxt);
+    copy_words(smem, crc_tab, kCrcWords, tid);
+    copy_words(wop, warp_op, kWarpOpWords, tid);
+    if constexpr (G > 0) copy_words(stab, ptab, G * k * kNibWords, tid);
+    __syncthreads();
+
+    // thread's crc v of row r at chunk c: roll it into the running crc, and
+    // at the row's last chunk carry it to its warp's end and fold the warp
+    auto crc_row = [&](int r, uint32_t v, long long c) {
+        if (nc > 1) {
+            uint32_t* st = state + r * kThreads + tid;
+            if (c > 0) v ^= nib_apply<1>(*st, roll);
+            if (c + 1 < nc) {
+                *st = v;
+                return;
+            }
+        }
+        v = nib_apply<32>(v, lop + lane);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+        if (lane == 0) part[r * kWarps + warp] = v;
+    };
+
+    for (; g < NG; g += stride) {
         const uint8_t* src = pool + g * k * T;
-        uint8_t* dst = parity + (g * m + row0) * T;
-        for (int r = 0; r < nrows; ++r) st[r * kThreads] = 0;
-
-        for (long long c0 = seg0; c0 < seg1; c0 += 16) {
-            const long long n = seg1 - c0 < 16 ? seg1 - c0 : 16;
+        for (long long c = 0; c < nc; ++c) {
+            const long long pos = c * kChunk + off;
             uint32_t acc[G > 0 ? G : 1][16];
 #pragma unroll
             for (int gg = 0; gg < G; ++gg)
 #pragma unroll
                 for (int p = 0; p < 16; ++p) acc[gg][p] = 0;
 
-            uint32_t nxt[4];
-            load16<VEC>(src + c0, n, nxt);
             for (int j = 0; j < k; ++j) {
                 const uint32_t w[4] = {nxt[0], nxt[1], nxt[2], nxt[3]};
-                if (j + 1 < k) load16<VEC>(src + (j + 1) * T + c0, n, nxt);
-                if (do_dcrc)
-                    st[j * kThreads] = crc16<VEC>(st[j * kThreads], w, n, ctab);
+                // the next piece: the next row, the next chunk's first row,
+                // or the next staged block's first row
+                if (j + 1 < k)
+                    load_piece<VEC>(src + (j + 1) * T, pos, T, nxt);
+                else if (c + 1 < nc)
+                    load_piece<VEC>(src, pos + kChunk, T, nxt);
+                else if (g + stride < NG)
+                    load_piece<VEC>(pool + (g + stride) * k * T, off, T, nxt);
+                if (do_dcrc) crc_row(j, seg_crc(w, sl), c);
                 if constexpr (G > 0)
-                    table_xor<G>(acc, w, stab + j * kTableWords, tstride);
+                    nib_table_xor<G>(acc, w, stab + j * kNibWords,
+                                     k * kNibWords);
             }
 
             if constexpr (G > 0) {
+                uint8_t* dst = parity + (g * m + row0) * T + pos;
 #pragma unroll
                 for (int gg = 0; gg < G; ++gg) {
 #pragma unroll
@@ -186,95 +247,102 @@ ragged_fused_kernel(const uint32_t* __restrict__ tab,     // [G][k][256]
                         const uint32_t ws[4] = {
                             gather_row(acc[gg], 0, r), gather_row(acc[gg], 1, r),
                             gather_row(acc[gg], 2, r), gather_row(acc[gg], 3, r)};
-                        uint32_t* sr = st + (k + row) * kThreads;
-                        *sr = crc16<VEC>(*sr, ws, n, ctab);
-                        uint8_t* o = dst + row * T + c0;
-                        if constexpr (VEC) {
-                            *reinterpret_cast<uint4*>(o) =
-                                make_uint4(ws[0], ws[1], ws[2], ws[3]);
-                        } else {
-#pragma unroll
-                            for (int p = 0; p < 16; ++p)
-                                if (p < n)
-                                    o[p] = static_cast<uint8_t>(
-                                        ws[p >> 2] >> (8 * (p & 3)));
-                        }
+                        crc_row(k + row, seg_crc(ws, sl), c);
+                        if (pos < T) store_piece<VEC>(dst + row * T, T - pos, ws);
                     }
                 }
             }
         }
+        __syncthreads();
 
-        // carry each lane's register past the bytes after its segment, then
-        // fold the warp's 32 partial crcs into the row's crc
-        for (int r = do_dcrc ? 0 : k; r < nrows; ++r) {
-            const uint32_t c = st[r * kThreads];
+        // eight threads per row: warp w's crc through its operator, folded
+        const int first = do_dcrc ? 0 : k;
+        const int nwork = (nrows - first) * kWarps;
+        for (int base = 0; base + (tid & ~31) < nwork; base += kThreads) {
+            const int i = base + tid;
+            const int r = first + i / kWarps;
+            const int w = i % kWarps;
             uint32_t v = 0;
+            if (i < nwork) {
+                const uint32_t s = part[r * kWarps + w];
 #pragma unroll
-            for (int i = 0; i < 32; ++i)
-                v ^= smat[i * 32 + lane] & (0u - ((c >> i) & 1u));
+                for (int b = 0; b < 32; ++b)
+                    v ^= wop[b * kWarps + w] & (0u - ((s >> b) & 1u));
+            }
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v ^= __shfl_xor_sync(0xFFFFFFFFu, v, off);
-            if (lane == 0) {
-                if (r < k) dcrc[g * k + r] = v ^ crc0;
-                else pcrc[g * m + row0 + (r - k)] = v ^ crc0;
+            for (int o = kWarps / 2; o > 0; o >>= 1)
+                v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+            if (i < nwork && w == 0) {
+                const long long crc = static_cast<long long>(v ^ crc0);
+                if (r < k) dcrc[g * k + r] = crc;
+                else pcrc[g * m + row0 + (r - k)] = crc;
             }
         }
+        __syncthreads();
     }
 }
 
-int smem_bytes(int G, int k, int rows) {
-    return (G * k * kTableWords + kCrcWords + 32 * 32 + (k + rows) * kThreads) *
+int smem_bytes(int G, int k, int rows, long long T) {
+    const int nrows = k + rows;
+    return (kCrcWords + kWarpOpWords + G * k * kNibWords + nrows * kWarps +
+            (T > kChunk ? nrows * kThreads : 0)) *
            static_cast<int>(sizeof(uint32_t));
 }
 
+int cached_smem_limit() {
+    static int limit = 0;
+    if (limit == 0) limit = smem_limit();
+    return limit;
+}
+
 template <int G, bool VEC>
-cudaError_t launch_pass(const uint32_t* tab, const uint32_t* lanemat,
-                        const uint8_t* pool, uint8_t* parity, uint32_t* dcrc,
-                        uint32_t* pcrc, long long NG, int k, int m, int row0,
-                        int rows, long long T, uint32_t crc0, int do_dcrc,
+cudaError_t launch_pass(const uint32_t* ptab, const uint32_t* crc_tab,
+                        const uint32_t* warp_op, const uint8_t* pool,
+                        uint8_t* parity, long long* dcrc, long long* pcrc,
+                        long long NG, int k, int m, int row0, int rows,
+                        long long T, uint32_t crc0, int do_dcrc,
                         cudaStream_t stream) {
-    const int smem = smem_bytes(G, k, rows);
-    if (smem > 48 * 1024) {
+    auto kernel = ragged_fused_kernel<G, VEC>;
+    const int smem = smem_bytes(G, k, rows, T);
+    // asked once per variant (and again only for a larger shared-memory
+    // size), so that a call captured into a CUDA graph queries nothing
+    static int allowed = 48 * 1024, cached_smem = -1, cached_per_sm = 0;
+    static long long sms = 0;
+    if (smem > allowed) {
         const cudaError_t e = cudaFuncSetAttribute(
-            ragged_fused_kernel<G, VEC>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (e != cudaSuccess) return e;
+        allowed = smem;
     }
-    // resident blocks per SM, asked once per (variant, shared memory) so
-    // that a call captured into a CUDA graph queries nothing
-    static int cached_smem = -1, cached_per_sm = 0;
     if (cached_smem != smem) {
         int per_sm = 0;
         const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, ragged_fused_kernel<G, VEC>, kThreads, smem);
+            &per_sm, kernel, kThreads, smem);
         if (e != cudaSuccess) return e;
         cached_smem = smem;
         cached_per_sm = per_sm;
     }
-    const int per_sm = cached_per_sm;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const long long sms = device_attr(cudaDevAttrMultiProcessorCount, 132);
-    const long long want = (NG + kWarps - 1) / kWarps;
-    long long grid = sms * per_sm;
-    if (grid > want) grid = want;
+    if (sms == 0) sms = device_attr(cudaDevAttrMultiProcessorCount, 132);
+    if (cached_per_sm < 1) return cudaErrorInvalidConfiguration;
+    // one block per staged block up to a full wave, then grid-stride
+    long long grid = sms * cached_per_sm;
+    if (grid > NG) grid = NG;
     if (grid > INT_MAX) grid = INT_MAX;
-    ragged_fused_kernel<G, VEC><<<static_cast<unsigned>(grid), kThreads, smem,
-                                  stream>>>(
-        tab, lanemat, pool, parity, dcrc, pcrc, NG, k, m, row0, rows, T, crc0,
-        do_dcrc);
+    kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+        ptab, crc_tab, warp_op, pool, parity, dcrc, pcrc, NG, k, m, row0,
+        rows, T, crc0, do_dcrc);
     return cudaGetLastError();
 }
 
 template <bool VEC>
-cudaError_t launch(int G, const uint32_t* tab, const uint32_t* lanemat,
-                   const uint8_t* pool, uint8_t* parity, uint32_t* dcrc,
-                   uint32_t* pcrc, long long NG, int k, int m, int row0,
-                   int rows, long long T, uint32_t crc0, int do_dcrc,
-                   cudaStream_t s) {
-#define K3_PASS(GG)                                                           \
-    launch_pass<GG, VEC>(tab, lanemat, pool, parity, dcrc, pcrc, NG, k, m,  \
-                         row0, rows, T, crc0, do_dcrc, s)
+cudaError_t launch(int G, const uint32_t* ptab, const uint32_t* crc_tab,
+                   const uint32_t* warp_op, const uint8_t* pool,
+                   uint8_t* parity, long long* dcrc, long long* pcrc,
+                   long long NG, int k, int m, int row0, int rows, long long T,
+                   uint32_t crc0, int do_dcrc, cudaStream_t s) {
+#define K3_PASS(GG)                                                          \
+    launch_pass<GG, VEC>(ptab, crc_tab, warp_op, pool, parity, dcrc, pcrc,  \
+                         NG, k, m, row0, rows, T, crc0, do_dcrc, s)
     switch (G) {
         case 0: return K3_PASS(0);
         case 1: return K3_PASS(1);
@@ -290,51 +358,57 @@ cudaError_t launch(int G, const uint32_t* tab, const uint32_t* lanemat,
 extern "C" {
 
 // Shared memory one pass over G row groups (`rows` parity rows) takes for k
-// data rows, and the most a block may take on the current device.
-int ceph_ragged_fused_smem_bytes(int G, int k, int rows) {
-    return smem_bytes(G, k, rows);
+// data rows of T bytes, and the most a block may take on the current device.
+int ceph_ragged_fused_smem_bytes(int G, int k, int rows, long long T) {
+    return smem_bytes(G, k, rows, T);
 }
 
-int ceph_ragged_fused_smem_limit(void) { return smem_limit(); }
+int ceph_ragged_fused_smem_limit(void) { return cached_smem_limit(); }
 
-// tab [ceil(m/4), k, 256] uint32 (K2's packed tables; unused when m = 0),
-// lanemat [32, 32] uint32 (column i of lane p's operator Z^(T - end_p) at
-// [i][p]), pool [NG, k, T] uint8, parity [NG, m, T] uint8, dcrc [NG, k] and
-// pcrc [NG, m] uint32, all contiguous on the current device; crc0 =
-// crc32(0^T).  Parity row groups go in passes of up to four (16 rows); the
-// data crcs are taken in the first.
-int ceph_ragged_fused(const void* tab, const void* lanemat, const void* pool,
-                      void* parity, void* dcrc, void* pcrc, long long NG,
-                      int k, int m, long long T, unsigned int crc0,
-                      void* stream) {
-    if (NG <= 0 || k <= 0 || m < 0 || T <= 0) return cudaErrorInvalidValue;
+// ptab [ceil(m/4), k, 32] uint32 (K2's packed tables split by nibble; NULL
+// when m = 0), crc_tab [kCrcWords] and warp_op [32, 8] uint32 (the host's
+// crc tables and T's warp operators), pool [NG, k, T] uint8, parity
+// [NG, m, T] uint8, dcrc [NG, k] and pcrc [NG, m] int64 (NULL when m = 0),
+// all contiguous on the current device; crc0 = crc32(0^T).  Parity row
+// groups go in passes of up to four (16 rows); the data crcs are taken in
+// the first.
+int ceph_ragged_fused(const void* ptab, const void* crc_tab,
+                      const void* warp_op, const void* pool, void* parity,
+                      void* dcrc, void* pcrc, long long NG, int k, int m,
+                      long long T, unsigned int crc0, void* stream) {
+    if (NG <= 0 || k <= 0 || m < 0 || T <= 0 || crc_tab == nullptr ||
+        warp_op == nullptr || pool == nullptr || dcrc == nullptr ||
+        (m > 0 && (ptab == nullptr || parity == nullptr || pcrc == nullptr)))
+        return cudaErrorInvalidValue;
     const int groups = (m + 3) / 4;
-    const bool vec = (T % 512 == 0) && aligned16(pool) &&
+    const bool vec = (T % 16 == 0) && aligned16(pool) &&
                      (m == 0 || aligned16(parity));
-    const uint32_t* t = static_cast<const uint32_t*>(tab);
-    const uint32_t* lm = static_cast<const uint32_t*>(lanemat);
+    const uint32_t* t = static_cast<const uint32_t*>(ptab);
+    const uint32_t* ct = static_cast<const uint32_t*>(crc_tab);
+    const uint32_t* wo = static_cast<const uint32_t*>(warp_op);
     const uint8_t* d = static_cast<const uint8_t*>(pool);
     uint8_t* o = static_cast<uint8_t*>(parity);
-    uint32_t* dc = static_cast<uint32_t*>(dcrc);
-    uint32_t* pc = static_cast<uint32_t*>(pcrc);
+    long long* dc = static_cast<long long*>(dcrc);
+    long long* pc = static_cast<long long*>(pcrc);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int limit = smem_limit();
+    const int limit = cached_smem_limit();
     int g0 = 0;
     do {
         int G = groups - g0 < 4 ? groups - g0 : 4;
         int rows = m - 4 * g0 < 4 * G ? m - 4 * g0 : 4 * G;
-        while (G > 1 && smem_bytes(G, k, rows) > limit) {
+        while (G > 1 && smem_bytes(G, k, rows, T) > limit) {
             --G;
             rows = 4 * G;
         }
-        if (smem_bytes(G, k, rows) > limit) return cudaErrorInvalidValue;
-        const uint32_t* tp = t + static_cast<long long>(g0) * k * kTableWords;
+        if (smem_bytes(G, k, rows, T) > limit) return cudaErrorInvalidValue;
+        const uint32_t* tp = G ? t + static_cast<long long>(g0) * k * kNibWords
+                               : nullptr;
         const int do_dcrc = g0 == 0;
         const cudaError_t e =
-            vec ? launch<true>(G, tp, lm, d, o, dc, pc, NG, k, m, 4 * g0, rows,
-                               T, crc0, do_dcrc, s)
-                : launch<false>(G, tp, lm, d, o, dc, pc, NG, k, m, 4 * g0, rows,
-                                T, crc0, do_dcrc, s);
+            vec ? launch<true>(G, tp, ct, wo, d, o, dc, pc, NG, k, m, 4 * g0,
+                               rows, T, crc0, do_dcrc, s)
+                : launch<false>(G, tp, ct, wo, d, o, dc, pc, NG, k, m, 4 * g0,
+                                rows, T, crc0, do_dcrc, s);
         if (e != cudaSuccess) return static_cast<int>(e);
         g0 += G;
     } while (g0 < groups);

@@ -14,11 +14,11 @@ construction is an O(B) table walk.
 
 ``crc32_blocks`` dispatches by the tensor's device:
 
-  * CUDA: kernel K3's crc leg alone (``gf_pallas.fused_ragged_matmul``
-    with m = 0, the blocks viewed as an [N, 1, B] pool), one launch for
-    the whole batch.  The reference's XLA program is a GF(2) matmul; on
-    the card the crc is zlib's table walk split over a warp, which uses
-    the same algebra (csrc/ragged_fused.cu).
+  * CUDA: kernel K3's crc leg alone (``gf_pallas.crc_leg``: m = 0, the
+    blocks viewed as an [N, 1, B] pool), one launch for the whole batch.
+    The reference's XLA program is a GF(2) matmul; on the card the crc
+    is a table walk split over a block's 256 threads, 16 bytes each,
+    which uses the same algebra (csrc/ragged_fused.cu).
   * CPU: the plain version ``crc32_blocks_plain`` — unpack to 0/1 and one
     float32 product with A.  Every sum is at most 8B, exact below 2^24.
     It unpacks 32x, so it is the tests' and the card's oracle, never the
@@ -147,9 +147,7 @@ def crc32_blocks(blocks, block: int = crcutil.CSUM_BLOCK,
         raise ValueError(f"blocks must be [N, {block}]")
     if arr.device.type == "cuda":
         from . import gf_pallas
-        _, crcs, _ = gf_pallas.fused_ragged_matmul(
-            np.zeros((0, 8), dtype=np.uint8), arr.contiguous()[:, None, :])
-        out = crcs[:, 0]
+        out = gf_pallas.crc_leg(arr.contiguous())
     elif arr.device.type == "cpu":
         plain_runs += 1
         out = crc32_blocks_plain(arr)

@@ -28,11 +28,13 @@ Dispatch is by the tensor's device and nothing else:
     block of ``bitmat`` is a GF(2)-linear map on bytes, so the wrapper
     builds the 256-entry byte tables T [m, k, 256] exactly on the host
     (``tables_host``), packs four output rows per 32-bit entry, caches
-    them by content and device, and the kernels XOR table lookups.  K3's
-    crc is zlib's table walk split over the 32 lanes of a warp; the
-    wrapper hands each lane the GF(2) operator that carries its partial
-    crc to the end of the row (``lane_operators``).  A refused launch
-    raises; there is no fallback.
+    them by content and device, and the kernels XOR table lookups.  K3
+    splits those tables and its crc tables by nibble (conflict-free
+    16-entry tables); its crc walks each row 16 bytes per thread, and
+    the host builds the GF(2) operators that carry each thread's and
+    each warp's partial crc to the end of the row (``crc_tables``,
+    ``warp_operators``).  A refused launch raises; there is no
+    fallback.
   * CPU tensor: the plain versions, ``gf_jax.bitplane_matmul`` (K2) and
     ``ragged_fused.fused_block_math`` (K3), which the tests hold
     bit-identical to ``ceph_tpu`` and ``chip_smoke.py`` holds the kernels
@@ -196,24 +198,110 @@ def bitplane_matmul(bitmat, data: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- K3 --
+#
+# K3's crc is zlib's register walk, linear over GF(2) once the affine
+# constant crc32(0^T) is set aside: L(a || b) = Z^|b| L(a) ^ L(b), with L
+# the walk from 0 and Z^n the 32x32 operator that advances a register
+# through n zero bytes (crcutil._zero_matrix).  A block of K3_THREADS
+# threads covers a row K3_CHUNK bytes at a time, thread t bytes
+# [16t, 16t + 16) of each chunk, and every table below is GF(2)-linear in
+# its index, so it is split into 16-entry nibble tables: a warp reading
+# one of them hits at most 16 words in 16 banks (equal words broadcast),
+# free of bank conflicts.
 
-def lane_operators(T: int) -> np.ndarray:
-    """[32, 32] uint32: column i of lane p's operator Z^(T - end_p) at
-    [i, p], where lane p of K3's warp walks columns [pS, pS + S) of a
-    T-byte row (S = ceil(T/32)), end_p is where its segment ends, and Z^n
-    advances a crc register through n zero bytes (crcutil._zero_matrix).
-    XOR over lanes of Z^(T - end_p)(partial_p) is the row's linear crc."""
-    S = -(-T // 32)
-    out = np.zeros((32, 32), dtype=np.uint32)
-    for p in range(32):
-        end = min(min(p * S, T) + S, T)
-        out[:, p] = crcutil._zero_matrix(T - end)
-    return out
+K3_THREADS = 256
+K3_WARPS = K3_THREADS // 32
+K3_CHUNK = 16 * K3_THREADS
+
+
+def _byte_crc(v: int) -> int:
+    """The walk from 0 over the single byte v (zlib's table entry)."""
+    return zlib.crc32(bytes([v])) ^ zlib.crc32(b"\x00")
+
+
+def _nibble_images(mat) -> np.ndarray:
+    """[8, 16] uint32: out[j, n] = mat (n << 4j), so that
+    mat v = XOR_j out[j, (v >> 4j) & 15]."""
+    return np.array([[crcutil._matrix_times(mat, n << (4 * j))
+                      for n in range(16)] for j in range(8)],
+                    dtype=np.uint32)
+
+
+def _gf2_inverse(cols):
+    """The inverse of a 32x32 GF(2) matrix given as 32 column ints."""
+    rows = [sum(((cols[i] >> r) & 1) << i for i in range(32)) |
+            (1 << (32 + r)) for r in range(32)]
+    for c in range(32):
+        piv = next(r for r in range(c, 32) if (rows[r] >> c) & 1)
+        rows[c], rows[piv] = rows[piv], rows[c]
+        for r in range(32):
+            if r != c and (rows[r] >> c) & 1:
+                rows[r] ^= rows[c]
+    return [sum(((rows[r] >> (32 + i)) & 1) << r for r in range(32))
+            for i in range(32)]
+
+
+@functools.lru_cache(maxsize=1)
+def crc_tables() -> np.ndarray:
+    """K3's fixed crc tables, one uint32 array in the kernel's order:
+
+    * slicing [16, 2, 16]: [i, h, n] = Z^(15-i) L(n << 4h), so a thread's
+      16 bytes x_0..x_15 walk from 0 to XOR_i of [i, 0, x_i & 15] and
+      [i, 1, x_i >> 4] (32 independent lookups, no serial chain);
+    * lanes [8, 16, 32]: lane l's operator Z^(16(31 - l)), nibble j of the
+      register at [j, n, l]: it carries lane l's crc to the end of its
+      warp's 512 bytes (lane-major, so a warp reads 32 banks);
+    * roll [8, 16]: Z^K3_CHUNK, which carries a thread's running crc of a
+      row longer than one chunk over the next chunk."""
+    sl = np.array([[[crcutil._matrix_times(crcutil._zero_matrix(15 - i),
+                                           _byte_crc(n << (4 * h)))
+                     for n in range(16)] for h in range(2)]
+                   for i in range(16)], dtype=np.uint32)
+    lanes = np.stack([_nibble_images(crcutil._zero_matrix(16 * (31 - l)))
+                      for l in range(32)], axis=-1)
+    roll = _nibble_images(crcutil._zero_matrix(K3_CHUNK))
+    return np.concatenate([sl.ravel(), lanes.ravel(), roll.ravel()])
 
 
 @functools.lru_cache(maxsize=64)
-def _lane_operators_device(T: int, device: str) -> torch.Tensor:
-    return torch.as_tensor(lane_operators(T).view(np.int32), device=device)
+def warp_operators(T: int) -> np.ndarray:
+    """[32, 8] uint32: column i of warp w's operator at [i, w], the operator
+    Z^(-z) Z^(512(7 - w)) that carries warp w's crc to the end of the
+    zero-padded row (z = the padding past T to a whole number of chunks)
+    and back to T; the XOR over warps is the row's linear crc."""
+    z = -(-T // K3_CHUNK) * K3_CHUNK - T
+    back = _gf2_inverse(crcutil._zero_matrix(z))
+    out = np.zeros((32, K3_WARPS), dtype=np.uint32)
+    for w in range(K3_WARPS):
+        span = 512 * (K3_WARPS - 1 - w)
+        out[:, w] = crcutil._matrix_mul(back, crcutil._zero_matrix(span))
+    return out
+
+
+def nibble_tables(bitmat) -> np.ndarray:
+    """K3's parity tables: K2's packed byte tables [ceil(m/4), k, 256]
+    split into [ceil(m/4), k, 32] nibble tables (low nibble's 16 entries,
+    then the high nibble's): T[v] = T[v & 15] ^ T[v & 0xF0]."""
+    packed = pack_tables(tables_host(bitmat))
+    return np.concatenate([packed[..., :16], packed[..., ::16]], axis=-1)
+
+
+@functools.lru_cache(maxsize=4)
+def _crc_tables_device(device: str) -> torch.Tensor:
+    return torch.as_tensor(crc_tables().view(np.int32), device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _warp_operators_device(T: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(warp_operators(T).view(np.int32), device=device)
+
+
+@functools.lru_cache(maxsize=4096)
+def _nibble_tables_device(key: bytes, R: int, C: int,
+                          device: str) -> torch.Tensor:
+    bm = np.frombuffer(key, dtype=np.uint8).reshape(R, C)
+    return torch.as_tensor(np.ascontiguousarray(nibble_tables(bm))
+                           .view(np.int32), device=device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -228,60 +316,78 @@ def _fused_lib() -> ctypes.CDLL:
     lib = _build.load("ragged_fused")
     lib.ceph_ragged_fused.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_uint, ctypes.c_void_p]
     lib.ceph_ragged_fused.restype = ctypes.c_int
-    lib.ceph_ragged_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                 ctypes.c_int]
+    lib.ceph_ragged_fused_smem_bytes.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
     lib.ceph_ragged_fused_smem_bytes.restype = ctypes.c_int
     lib.ceph_ragged_fused_smem_limit.argtypes = []
     lib.ceph_ragged_fused_smem_limit.restype = ctypes.c_int
     return lib
 
 
-def fused_smem_bytes(m: int, k: int):
-    """(bytes, limit): the shared memory one block of K3 takes in its
-    first pass for k data rows and m parity rows, and the most a block
-    may take on the current card (builds the kernel)."""
+@functools.lru_cache(maxsize=256)
+def _fused_smem(m: int, k: int, multi_chunk: bool, device: str):
     lib = _fused_lib()
     G = min(4, (m + 3) // 4)
-    return (lib.ceph_ragged_fused_smem_bytes(G, k, min(m, 4 * G)),
-            lib.ceph_ragged_fused_smem_limit())
+    T = 2 * K3_CHUNK if multi_chunk else K3_CHUNK
+    with torch.cuda.device(device):
+        return (lib.ceph_ragged_fused_smem_bytes(G, k, min(m, 4 * G), T),
+                lib.ceph_ragged_fused_smem_limit())
+
+
+def fused_smem_bytes(m: int, k: int, T: int = K3_CHUNK, device="cuda"):
+    """(bytes, limit): the shared memory one block of K3 takes in its
+    first pass for k data rows, m parity rows and T-byte rows, and the
+    most a block may take on the card (builds the kernel; asked once per
+    shape and card)."""
+    return _fused_smem(m, k, T > K3_CHUNK, str(torch.device(device)))
+
+
+_NO_PARITY = np.zeros((0, 8), dtype=np.uint8)
 
 
 def _launch_fused(bm: np.ndarray, pool: torch.Tensor):
-    """K3 on the card: pool [G, k, T] -> (parity, data crcs, parity crcs)."""
+    """K3 on the card: pool [G, k, T] -> (parity, data crcs, parity crcs).
+    With m = 0 the parity and its crcs are empty views, not allocations."""
     global fused_launches
     G, k, T = pool.shape
     m = bm.shape[0] // 8
     dev = pool.device
-    parity = torch.empty((G, m, T), dtype=torch.uint8, device=dev)
-    dcrc = torch.empty((G, k), dtype=torch.int32, device=dev)
-    pcrc = torch.empty((G, m), dtype=torch.int32, device=dev)
+    key = str(dev)
+    dcrc = torch.empty((G, k), dtype=torch.int64, device=dev)
+    if m:
+        parity = torch.empty((G, m, T), dtype=torch.uint8, device=dev)
+        pcrc = torch.empty((G, m), dtype=torch.int64, device=dev)
+        tables = _nibble_tables_device(bm.tobytes(), *bm.shape, key)
+    else:
+        parity, pcrc, tables = pool[:, :0], dcrc[:, :0], None
     if G == 0:
-        return parity, dcrc.long(), pcrc.long()
+        return parity, dcrc, pcrc
+    need, limit = _fused_smem(min(m, 4), k, T > K3_CHUNK, key)
+    if need > limit:
+        raise ValueError(
+            f"K3 holds {k} data rows of tables and crc state in {need} B "
+            f"of shared memory; a block takes at most {limit} B")
+    ctab = _crc_tables_device(key)
+    wops = _warp_operators_device(T, key)
     lib = _fused_lib()
-    # m = 0 (the crc leg alone) reads no tables: any valid pointer does
-    tables = tables_to_device(bm, dev) if m else dcrc
-    lanes = _lane_operators_device(T, str(dev))
     with torch.cuda.device(dev):
-        need, limit = fused_smem_bytes(min(m, 4), k)
-        if need > limit:
-            raise ValueError(
-                f"K3 holds {k} data rows of tables and crc registers in "
-                f"{need} B of shared memory; a block takes at most {limit} B")
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ceph_ragged_fused(
-            tables.data_ptr(), lanes.data_ptr(), pool.data_ptr(),
-            parity.data_ptr(), dcrc.data_ptr(), pcrc.data_ptr(), G, k, m, T,
-            _zero_crc(T), stream)
+            None if tables is None else tables.data_ptr(), ctab.data_ptr(),
+            wops.data_ptr(), pool.data_ptr(),
+            parity.data_ptr() if m else None, dcrc.data_ptr(),
+            pcrc.data_ptr() if m else None, G, k, m, T, _zero_crc(T),
+            stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc} "
                            f"(pool {tuple(pool.shape)}, m {m})")
     fused_launches += 1
     _perf("gf_pallas").inc("fused_launches")
-    mask = 0xFFFFFFFF
-    return parity, dcrc.long() & mask, pcrc.long() & mask
+    return parity, dcrc, pcrc
 
 
 def fused_ragged_matmul(bitmat, pool: torch.Tensor):
@@ -313,3 +419,9 @@ def fused_ragged_matmul(bitmat, pool: torch.Tensor):
         return fused_block_math(torch.from_numpy(bm), torch.from_numpy(A8),
                                 const, pool)
     raise ValueError(f"K3 has no kernel for device {pool.device}")
+
+
+def crc_leg(blocks: torch.Tensor) -> torch.Tensor:
+    """K3's crc leg alone (m = 0) over ``blocks`` [N, T] uint8 -> [N]
+    int64 crc32 values: the receive verify's engine."""
+    return fused_ragged_matmul(_NO_PARITY, blocks[:, None, :])[1][:, 0]

@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      per-object put [4, 8, 131072], the batched encode [128, 8, 131072],
      a 3-erasure decode and a ragged L = 131071; K3: a 512-block chunk of
      the ZeroWire pool (RS(4,2)), RS(8,3), k + m = 20 with a random
-     bit-matrix, a 1-byte, an exact-block and a block + 1 object, and
-     its crc leg alone (m = 0) at block sizes 1, 64, 512 and 4096);
+     bit-matrix, a 1-byte, an exact-block and a block + 1 object, a
+     513-block RS(4,2) pool one byte off 16-byte alignment, and its crc
+     leg alone (m = 0) at block sizes 1, 64, 512, 4096, 4097 and 65536);
   3. the EC data path through ECBackend: an RS(8,3) layout=bitsliced pool,
      1 MiB stripes, 128 objects of 4 MiB put in one ingest batch onto 16
      OSD device caches, 3 OSDs killed, every object read back (degraded
@@ -744,10 +745,13 @@ def k3_shapes(device, gen, main_pool: np.ndarray):
         "k8m12_random": (rng.integers(0, 2, (96, 64), dtype=np.uint8),
                          data((33, 8, 4096))),
         "objects_1_4096_4097": (rs42, torch.from_numpy(edges).to(device)),
+        # a pool one byte past a 16-byte boundary: K3's byte-load variant
+        "rs42_offset1": (rs42, data((513 * ZW_K * 4096 + 1,))[1:]
+                         .view(513, ZW_K, 4096)),
     }
-    for T in (1, 64, 512, 4096):
+    for T in (1, 64, 512, 4096, 4097, 65536):
         shapes[f"crc_leg_{T}"] = (np.zeros((0, 8), dtype=np.uint8),
-                                  data((256, 1, T)))
+                                  data((64 if T > 4097 else 256, 1, T)))
     return shapes
 
 

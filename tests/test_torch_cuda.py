@@ -360,6 +360,8 @@ def check_k3(card, bitmat, pool):
     ("k14m6", 14, 6, 9, 4096),
     ("k4m16", 4, 16, 9, 4096),
     ("ragged_T", 4, 2, 7, 4095),
+    ("rs42_513", 4, 2, 513, 4096),
+    ("rs42_grid_stride", 4, 2, 4099, 4096),
 ])
 def test_k3_matches_plain(card, name, k, m, G, T):
     A = gf.isa_rs_parity(k, m)
@@ -395,6 +397,54 @@ def test_k3_crc_leg_every_block_size(card, T):
     assert got.tolist() == want
     if T <= 4097:
         assert crc32_gf2.crc32_blocks_plain(blocks).tolist() == want
+
+
+@pytest.mark.parametrize("N", [1, 70, 512])
+def test_k3_crc_leg_at_frame_sizes(card, N):
+    """The receive verify's shapes: N blocks of 4 KiB, one launch, equal
+    to zlib and to the plain version."""
+    from ceph_tpu_torch.ops import crc32_gf2
+    blocks = torch.from_numpy(rand_bytes((N, 4096), 100 + N)).to(card)
+    launches = gf_pallas.fused_launches
+    got = gf_pallas.crc_leg(blocks)
+    torch.cuda.synchronize()
+    assert gf_pallas.fused_launches == launches + 1
+    want = [zlib.crc32(r.tobytes()) for r in blocks.cpu().numpy()]
+    assert got.dtype == torch.int64 and got.tolist() == want
+    assert crc32_gf2.crc32_blocks_plain(blocks).tolist() == want
+    out = crc32_gf2.crc32_blocks(blocks)
+    assert out.dtype == np.uint32 and out.tolist() == want
+
+
+def test_k3_captured_in_a_cuda_graph_equals_eager(card):
+    """A K3 call captured into a CUDA graph (fused encode and crc leg)
+    replays to the eager call's parity and crcs, and re-reads its input
+    on every replay."""
+    bm = gf.gf8_bitmatrix(gf.isa_rs_parity(4, 2))
+    pool = torch.from_numpy(rand_bytes((600, 4, 4096), 21)).to(card)
+    frame = torch.from_numpy(rand_bytes((70, 4096), 22)).to(card)
+
+    def call():
+        return gf_pallas.fused_ragged_matmul(bm, pool) + \
+            (gf_pallas.crc_leg(frame),)
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = call()
+    for new_seed in (None, 23):
+        if new_seed is not None:
+            pool.copy_(torch.from_numpy(rand_bytes((600, 4, 4096),
+                                                   new_seed)))
+            frame.copy_(torch.from_numpy(rand_bytes((70, 4096),
+                                                    new_seed + 1)))
+        g.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        for c, e in zip(captured, eager):
+            assert c.dtype == e.dtype and torch.equal(c, e)
+    assert captured[3].tolist() == [zlib.crc32(r.tobytes())
+                                    for r in frame.cpu().numpy()]
 
 
 def test_k3_object_edges_on_card_equal_cpu(card):

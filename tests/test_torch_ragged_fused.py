@@ -15,10 +15,10 @@ tolerance):
     ``unfused`` / ``device_tail`` scan counters match the reference's;
   * the port's ``fused_block_math`` (K3's plain version) equals the
     reference's at RS(4,2), RS(8,3) and a random bit-matrix;
-  * a NumPy emulation of K3's crc walk (32 lane segments, slicing-by-4
-    tables, the host's lane operators, the XOR fold) equals zlib at
-    every block size class, so the operators the card reads are held
-    here;
+  * a NumPy emulation of K3's crc walk (16-byte thread segments through
+    the nibble slicing tables, the chunk roll, the lane and warp
+    operators, the XOR folds) equals zlib at every block size class, so
+    the tables the card reads are held here;
   * ``impl="pallas"`` and ``impl="plane"`` on the CPU raise (the
     reference falls back to its XLA route; the port does not).
 """
@@ -228,73 +228,118 @@ def test_wrapper_rejects_bad_inputs():
 
 # ------------------------------------------------ K3's crc walk, emulated --
 
-def _slice4_tables():
-    t0 = []
-    for v in range(256):
-        c = v
-        for _ in range(8):
-            c = (c >> 1) ^ (0xEDB88320 if c & 1 else 0)
-        t0.append(c)
-    tabs = [t0]
-    for _ in range(3):
-        prev = tabs[-1]
-        tabs.append([(c >> 8) ^ t0[c & 0xFF] for c in prev])
-    return tabs
-
-
-def _k3_crc_emulated(row: bytes, lanes: np.ndarray) -> int:
-    """The kernel's crc of one T-byte row: lane p walks its segment 16
-    bytes at a time (whole words by slicing-by-4, a partial word byte by
-    byte), its register is carried to the end of the row by its operator
-    (32 conditional XORs of columns [i, p]), the warp XORs the lanes and
-    XORs in crc32(0^T)."""
-    t = _slice4_tables()
+def _k3_crc_emulated(row: bytes) -> int:
+    """The kernel's crc of one T-byte row, step for step, from the tables
+    the card reads: the row is zero-padded to whole chunks; thread t walks
+    its 16 bytes of each chunk from 0 through the slicing tables (32
+    nibble lookups), rolls its running crc over each later chunk
+    (Z^chunk), carries it to the end of its warp's 512 bytes through its
+    lane operator; the warp XORs its lanes, each warp's crc goes through
+    its warp operator (to the padded end and back to T), the block XORs
+    the warps and XORs in crc32(0^T)."""
     T = len(row)
-    S = -(-T // 32)
-    fold = 0
-    for p in range(32):
-        s0 = min(p * S, T)
-        s1 = min(s0 + S, T)
-        c = 0
-        for c0 in range(s0, s1, 16):
-            n = min(16, s1 - c0)
-            chunk = row[c0:c0 + n]
-            for q in range(4):
-                if 4 * q + 4 <= n:
-                    c ^= int.from_bytes(chunk[4 * q:4 * q + 4], "little")
-                    c = (t[3][c & 0xFF] ^ t[2][(c >> 8) & 0xFF] ^
-                         t[1][(c >> 16) & 0xFF] ^ t[0][c >> 24])
-                else:
-                    for b in chunk[4 * q:n]:
-                        c = t[0][(c ^ b) & 0xFF] ^ (c >> 8)
-        v = 0
-        for i in range(32):
-            if (c >> i) & 1:
-                v ^= int(lanes[i, p])
-        fold ^= v
-    return fold ^ zlib.crc32(bytes(T))
+    tabs = gf_pallas.crc_tables()
+    sl = tabs[:512].reshape(16, 2, 16)
+    lanes = tabs[512:512 + 4096].reshape(8, 16, 32)
+    roll = tabs[512 + 4096:].reshape(8, 16)
+    nthr, chunk = gf_pallas.K3_THREADS, gf_pallas.K3_CHUNK
+    nc = -(-T // chunk)
+    x = np.zeros(nc * chunk, dtype=np.uint8)
+    x[:T] = np.frombuffer(row, dtype=np.uint8)
+    x = x.reshape(nc, nthr, 16).astype(np.int64)
+    i = np.arange(16)
+    seg = np.bitwise_xor.reduce(sl[i, 0, x & 15] ^ sl[i, 1, x >> 4],
+                                axis=-1)                    # [nc, nthr]
+
+    def nibbles(v):
+        return [(v >> (4 * j)) & 15 for j in range(8)]
+
+    run = seg[0]
+    for c in range(1, nc):
+        rolled = np.zeros_like(run)
+        for j, n in enumerate(nibbles(run)):
+            rolled ^= roll[j, n]
+        run = rolled ^ seg[c]
+    lane = np.arange(nthr) % 32
+    carried = np.zeros_like(run)
+    for j, n in enumerate(nibbles(run)):
+        carried ^= lanes[j, n, lane]
+    warps = np.bitwise_xor.reduce(carried.reshape(gf_pallas.K3_WARPS, 32),
+                                  axis=1)
+    ops = gf_pallas.warp_operators(T)
+    lin = 0
+    for w, v in enumerate(warps.tolist()):
+        for b in range(32):
+            if (v >> b) & 1:
+                lin ^= int(ops[b, w])
+    return lin ^ zlib.crc32(bytes(T))
 
 
-@pytest.mark.parametrize("T", [1, 3, 17, 64, 512, 600, 4095, 4096])
-def test_kernel_crc_walk_emulated_equals_zlib(T):
+@pytest.mark.parametrize("T", [1, 3, 15, 16, 17, 64, 512, 600, 4095, 4096,
+                               4097, 65536])
+def test_kernel_walk_emulated_equals_zlib(T):
     rng = np.random.default_rng(40 + T)
-    lanes = gf_pallas.lane_operators(T)
-    assert lanes.shape == (32, 32) and lanes.dtype == np.uint32
     for _ in range(2):
         row = rng.integers(0, 256, T, dtype=np.uint8).tobytes()
-        assert _k3_crc_emulated(row, lanes) == zlib.crc32(row)
+        assert _k3_crc_emulated(row) == zlib.crc32(row)
 
 
-def test_lane_operators_are_zero_advances():
-    """Column i of lane p's operator is Z^(T - end_p) applied to 1 << i:
-    advancing a register through n zero bytes equals crc32_combine's
-    advance (checked on one bit per lane)."""
-    T = 4096
-    lanes = gf_pallas.lane_operators(T)
-    for p in (0, 5, 31):
-        n = T - 128 * (p + 1)
-        assert int(lanes[7, p]) == crcutil.crc32_combine(1 << 7, 0, n)
-    assert int(lanes[3, 31]) == 1 << 3       # the last lane: identity
+def test_crc_tables_and_operators_are_zero_advances():
+    """Every table entry is a zero advance of a byte's crc: Z^n v equals
+    crcutil.crc32_combine(v, 0, n) (zlib's combine), for the slicing
+    tables, the lane operators, the chunk roll and the warp operators
+    (whose padding is undone: advancing a warp operator's image by the
+    padding z gives the plain advance to the padded end)."""
+    tabs = gf_pallas.crc_tables()
+    assert tabs.dtype == np.uint32 and tabs.shape == (512 + 4096 + 128,)
+    sl = tabs[:512].reshape(16, 2, 16)
+    lanes = tabs[512:512 + 4096].reshape(8, 16, 32)
+    roll = tabs[512 + 4096:].reshape(8, 16)
+    rng = np.random.default_rng(41)
+    z0 = zlib.crc32(b"\x00")
+    for i, h, n in rng.integers(0, [16, 2, 16], size=(8, 3)).tolist():
+        byte = zlib.crc32(bytes([n << (4 * h)])) ^ z0
+        assert int(sl[i, h, n]) == crcutil.crc32_combine(byte, 0, 15 - i)
+    for l in (0, 5, 30, 31):
+        for j, n in ((0, 1), (3, 9), (7, 15)):
+            assert int(lanes[j, n, l]) == crcutil.crc32_combine(
+                n << (4 * j), 0, 16 * (31 - l))
+    assert int(roll[2, 5]) == crcutil.crc32_combine(5 << 8, 0, 4096)
+    for T in (4096, 4097, 600):
+        ops = gf_pallas.warp_operators(T)
+        z = -(-T // 4096) * 4096 - T
+        for w in (0, 3, 7):
+            for b in (0, 17, 31):
+                assert crcutil.crc32_combine(int(ops[b, w]), 0, z) == \
+                    crcutil.crc32_combine(1 << b, 0, 512 * (7 - w))
+    assert int(gf_pallas.warp_operators(4096)[4, 7]) == 1 << 4
+
+
+def test_nibble_tables_split_the_byte_tables():
+    bm = gf.gf8_bitmatrix(gf.isa_rs_parity(5, 6))
+    packed = gf_pallas.pack_tables(gf_pallas.tables_host(bm))
+    nib = gf_pallas.nibble_tables(bm)
+    assert nib.shape == (2, 5, 32) and nib.dtype == np.uint32
+    v = np.arange(256)
+    assert (nib[..., v & 15] ^ nib[..., 16 + (v >> 4)] == packed).all()
+
+
+def test_crc_leg_and_crc32_blocks_on_the_cpu_keep_their_contracts():
+    """``crc_leg`` gives [N] int64 crcs through the plain version on a CPU
+    tensor; ``crc32_blocks`` returns a uint32 NumPy array [N] for a host
+    array and for a tensor alike."""
+    from ceph_tpu_torch.ops import crc32_gf2
+    rng = np.random.default_rng(42)
+    blocks = rng.integers(0, 256, (5, 4096), dtype=np.uint8)
+    want = [zlib.crc32(r.tobytes()) for r in blocks]
+    p0 = gf_pallas.plain_runs
+    got = gf_pallas.crc_leg(torch.from_numpy(blocks))
+    assert gf_pallas.plain_runs == p0 + 1
+    assert got.dtype == torch.int64 and got.tolist() == want
+    for arg in (blocks, torch.from_numpy(blocks)):
+        out = crc32_gf2.crc32_blocks(arg, device="cpu")
+        assert isinstance(out, np.ndarray) and out.dtype == np.uint32
+        assert out.shape == (5,) and out.tolist() == want
 
 
 # ------------------------------------------------------ the divergences --
