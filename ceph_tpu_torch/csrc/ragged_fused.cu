@@ -83,6 +83,8 @@ constexpr int kRollWords = 8 * 16;                // [nibble j][n]: Z^4096
 constexpr int kCrcWords = kSliceWords + kLaneWords + kRollWords;
 constexpr int kWarpOpWords = 32 * kWarps;         // [bit][warp]
 constexpr int kNibWords = 32;                     // per (group, data row)
+constexpr int kPairWords = 2 * kSliceWords;       // per data row, uint2
+constexpr int kAlign = 2048;                      // table base alignment
 
 __device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src,
                                            int n, int tid) {
@@ -115,43 +117,80 @@ __device__ __forceinline__ void store_piece(uint8_t* o, long long left,
     }
 }
 
-// the walk from 0 over 16 bytes: XOR of 32 nibble lookups
+// Table lookups on 32-bit shared-memory addresses.  Every table base is
+// aligned so that a nibble index, shifted to its scale, ORs into the base:
+// one shift, one AND-OR and the load, with the table's offset folded into
+// the load's immediate.
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+    return v;
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+    uint2 v;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(v.x), "=r"(v.y) : "r"(a));
+    return v;
+}
+
+// bits [lo, lo + 4) of v moved to bits [at, at + 4), the rest cleared
+__device__ __forceinline__ uint32_t nib_at(uint32_t v, int lo, int at) {
+    return (lo >= at ? v >> (lo - at) : v << (at - lo)) & (15u << at);
+}
+
+// the walk from 0 over 16 bytes: XOR of 32 nibble lookups of the slicing
+// tables at sl ([byte][nibble][16] words)
 __device__ __forceinline__ uint32_t seg_crc(const uint32_t (&w)[4],
-                                            const uint32_t* sl) {
+                                            uint32_t sl) {
     uint32_t c = 0;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        const uint32_t x = w[i >> 2] >> (8 * (i & 3));
-        c ^= sl[32 * i + (x & 15u)] ^ sl[32 * i + 16 + ((x >> 4) & 15u)];
+    for (int p = 0; p < 16; ++p) {
+        const uint32_t x = w[p >> 2];
+        const int b = 8 * (p & 3);
+        c ^= lds32((sl | nib_at(x, b, 2)) + 128 * p) ^
+             lds32((sl | nib_at(x, b + 4, 2)) + 128 * p + 64);
     }
     return c;
 }
 
-// a 32x32 GF(2) operator as eight nibble tables t[(16j + n) * STRIDE]
-template <int STRIDE>
-__device__ __forceinline__ uint32_t nib_apply(uint32_t v, const uint32_t* t) {
+// a 32x32 GF(2) operator as eight nibble tables at t, nibble j's 16
+// entries 16 x (4 << AT) bytes apart, entry n at n << AT
+template <int AT>
+__device__ __forceinline__ uint32_t nib_apply(uint32_t v, uint32_t t) {
     uint32_t out = 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-        out ^= t[(16 * j + ((v >> (4 * j)) & 15u)) * STRIDE];
+        out ^= lds32((t | nib_at(v, 4 * j, AT)) + (16 << AT) * j);
     return out;
 }
 
-// acc[g][p] ^= T_g[byte p of w], the tables of one data row split by nibble
-// (low nibble's 16 entries, then the high nibble's; groups gstride apart)
+// one data row's 16 bytes: its walk from 0 (returned) and the parity tables
+// XORed into acc.  The slicing entry and group 0's parity entry share each
+// nibble index, so one 64-bit lookup of the row's paired table pj
+// ([byte][nibble][16] x 8 bytes) fetches both; groups 1.. read their nibble
+// tables at tj, gstride bytes apart.
 template <int G>
-__device__ __forceinline__ void nib_table_xor(
-        uint32_t (&acc)[G > 0 ? G : 1][16], const uint32_t (&w)[4],
-        const uint32_t* tj, int gstride) {
+__device__ __forceinline__ uint32_t crc_and_parity(
+        uint32_t (&acc)[G][16], const uint32_t (&w)[4], uint32_t pj,
+        uint32_t tj, int gstride) {
+    uint32_t c = 0;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-        const uint32_t* t = tj + g * gstride;
+    for (int p = 0; p < 16; ++p) {
+        const uint32_t x = w[p >> 2];
+        const int b = 8 * (p & 3);
+        const uint2 lo = lds64((pj | nib_at(x, b, 3)) + 256 * p);
+        const uint2 hi = lds64((pj | nib_at(x, b + 4, 3)) + 256 * p + 128);
+        c ^= lo.x ^ hi.x;
+        acc[0][p] ^= lo.y ^ hi.y;
 #pragma unroll
-        for (int p = 0; p < 16; ++p) {
-            const uint32_t x = w[p >> 2] >> (8 * (p & 3));
-            acc[g][p] ^= t[x & 15u] ^ t[16 + ((x >> 4) & 15u)];
+        for (int g = 1; g < G; ++g) {
+            const uint32_t t = tj + g * gstride;
+            acc[g][p] ^= lds32(t | nib_at(x, b, 2)) ^
+                         lds32((t | nib_at(x, b + 4, 2)) + 64);
         }
     }
+    return c;
 }
 
 // G packed parity row groups in this pass (0 = the crc leg alone)
@@ -167,19 +206,30 @@ ragged_fused_kernel(const uint32_t* __restrict__ ptab,     // [G][k][32]
                     long long NG, int k, int m, int row0, int rows,
                     long long T, uint32_t crc0, int do_dcrc) {
     extern __shared__ uint4 smem4[];
-    uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
-    const uint32_t* sl = smem;
-    const uint32_t* lop = sl + kSliceWords;
-    const uint32_t* roll = lop + kLaneWords;
-    uint32_t* wop = smem + kCrcWords;
-    uint32_t* stab = wop + kWarpOpWords;
-    const int nrows = k + rows;              // crc'd rows: data, then parity
-    uint32_t* part = stab + G * k * kNibWords;      // [nrows][warp]
-    uint32_t* state = part + nrows * kWarps;        // [nrows][thread]
-
+    // the tables start kAlign-aligned (smem_bytes reserves the slack), so
+    // that every table base below takes its nibble index by an OR
+    const uint32_t raw =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+    const uint32_t pad = (kAlign - (raw & (kAlign - 1))) & (kAlign - 1);
+    uint32_t* smem =
+        reinterpret_cast<uint32_t*>(reinterpret_cast<char*>(smem4) + pad);
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
+    const int pair_words = G > 0 ? k * kPairWords : 0;
+    // generic pointers, for the prologue and the per-block scratch
+    uint32_t* wop = smem + kCrcWords;
+    uint2* pair = reinterpret_cast<uint2*>(wop + kWarpOpWords);  // [k][512]
+    uint32_t* stab = wop + kWarpOpWords + pair_words;
+    const int nrows = k + rows;              // crc'd rows: data, then parity
+    uint32_t* part = stab + G * k * kNibWords;      // [nrows][warp]
+    uint32_t* state = part + nrows * kWarps;        // [nrows][thread]
+    // shared addresses of the tables read in the loop
+    const uint32_t sl = raw + pad;
+    const uint32_t lop = sl + 4 * kSliceWords + 4 * lane;
+    const uint32_t roll = sl + 4 * (kSliceWords + kLaneWords);
+    const uint32_t pair_s = sl + 4 * (kCrcWords + kWarpOpWords);
+    const uint32_t stab_s = pair_s + 4 * pair_words;
     const long long nc = (T + kChunk - 1) / kChunk;
     const long long off = 16LL * tid;
     const long long stride = gridDim.x;
@@ -192,19 +242,28 @@ ragged_fused_kernel(const uint32_t* __restrict__ ptab,     // [G][k][32]
     copy_words(wop, warp_op, kWarpOpWords, tid);
     if constexpr (G > 0) copy_words(stab, ptab, G * k * kNibWords, tid);
     __syncthreads();
+    if constexpr (G > 0) {
+        // pair[j][q] = (slicing entry q, group 0's entry of row j at the
+        // same nibble index), q = 32 x byte + 16 x nibble + n
+        for (int i = tid; i < k * kSliceWords; i += kThreads) {
+            const int j = i / kSliceWords, q = i % kSliceWords;
+            pair[i] = make_uint2(smem[q], stab[j * kNibWords + (q & 31)]);
+        }
+        __syncthreads();
+    }
 
     // thread's crc v of row r at chunk c: roll it into the running crc, and
     // at the row's last chunk carry it to its warp's end and fold the warp
     auto crc_row = [&](int r, uint32_t v, long long c) {
         if (nc > 1) {
             uint32_t* st = state + r * kThreads + tid;
-            if (c > 0) v ^= nib_apply<1>(*st, roll);
+            if (c > 0) v ^= nib_apply<2>(*st, roll);
             if (c + 1 < nc) {
                 *st = v;
                 return;
             }
         }
-        v = nib_apply<32>(v, lop + lane);
+        v = nib_apply<7>(v, lop);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
         if (lane == 0) part[r * kWarps + warp] = v;
@@ -230,10 +289,14 @@ ragged_fused_kernel(const uint32_t* __restrict__ ptab,     // [G][k][32]
                     load_piece<VEC>(src, pos + kChunk, T, nxt);
                 else if (g + stride < NG)
                     load_piece<VEC>(pool + (g + stride) * k * T, off, T, nxt);
-                if (do_dcrc) crc_row(j, seg_crc(w, sl), c);
-                if constexpr (G > 0)
-                    nib_table_xor<G>(acc, w, stab + j * kNibWords,
-                                     k * kNibWords);
+                if constexpr (G > 0) {
+                    const uint32_t s = crc_and_parity<G>(
+                        acc, w, pair_s + 8 * kSliceWords * j,
+                        stab_s + 4 * kNibWords * j, 4 * kNibWords * k);
+                    if (do_dcrc) crc_row(j, s, c);
+                } else {
+                    crc_row(j, seg_crc(w, sl), c);
+                }
             }
 
             if constexpr (G > 0) {
@@ -284,9 +347,11 @@ ragged_fused_kernel(const uint32_t* __restrict__ ptab,     // [G][k][32]
 
 int smem_bytes(int G, int k, int rows, long long T) {
     const int nrows = k + rows;
-    return (kCrcWords + kWarpOpWords + G * k * kNibWords + nrows * kWarps +
+    return kAlign +
+           (kCrcWords + kWarpOpWords + (G > 0 ? k * kPairWords : 0) +
+            G * k * kNibWords + nrows * kWarps +
             (T > kChunk ? nrows * kThreads : 0)) *
-           static_cast<int>(sizeof(uint32_t));
+               static_cast<int>(sizeof(uint32_t));
 }
 
 int cached_smem_limit() {
