@@ -23,26 +23,28 @@
 // (grid-stride over the pool, one block per staged block while the pool is
 // small) and covers each row 4096 bytes (a chunk) at a time: thread t owns
 // bytes [16t, 16t + 16) of the chunk, so every warp load is 512 contiguous
-// bytes.  For each data row the thread
-//   * walks its 16 bytes from 0 through the slicing tables: 32 independent
-//     lookups (no serial chain), Z^(15-i) L(byte i) split by nibble;
-//   * XORs K2's packed parity tables (four parity rows per 32-bit entry),
-//     also split by nibble, into G x 16 accumulators.
-// Then it transposes the accumulators to the parity rows' bytes, walks them
-// the same way (the parity never leaves registers before its crc is taken)
-// and stores them.  At a row's last chunk each thread carries its crc to the
-// end of its warp's 512 bytes (its lane operator Z^(16(31-lane))), the warp
-// XORs its lanes with shuffles, and eight threads per row carry the eight
-// warp crcs to the row's end (warp operators, which also undo the zero
-// padding past T) and XOR them.  A row longer than one chunk keeps a running
-// crc per thread in shared memory, rolled over each chunk by Z^4096.
+// bytes.  For each data row the thread walks its 16 bytes from 0 through the
+// slicing tables (Z^(15-i) L(byte i): 32 independent lookups, no serial
+// chain) and XORs K2's packed parity tables (four parity rows per 32-bit
+// entry) into G x 16 accumulators.  Then it transposes the accumulators to
+// the parity rows' bytes, walks them the same way (the parity never leaves
+// registers before its crc is taken) and stores them.  At a row's last
+// chunk each thread carries its crc to the end of its warp's 512 bytes (its
+// lane operator Z^(16(31-lane))), the warp XORs its lanes with shuffles, and
+// eight threads per row carry the eight warp crcs to the row's end (warp
+// operators, which also undo the zero padding past T) and XOR them.  A row
+// longer than one chunk keeps a running crc per thread in shared memory,
+// rolled over each chunk by Z^4096.
 //
 // Every table is GF(2)-linear in its index, so each is split into 16-entry
 // nibble tables: a warp reading one touches at most 16 words in 16 banks
 // (equal words broadcast), free of bank conflicts; the lane operators are
-// stored lane-major, one bank per lane.  The tables are built once on the
-// host and cached on the card; each block copies them into shared memory
-// with 16-byte loads after issuing its first data load.
+// stored lane-major, one bank per lane.  A data row's slicing entry and its
+// first parity group's entry share the nibble index, so they are paired in
+// one 64-bit entry and one load fetches both.  The tables are built once on
+// the host and cached on the card; each block copies them into shared
+// memory after issuing its first data load, at a 2 KiB-aligned base, so that
+// a lookup's address is its nibble shifted and ORed into the table's base.
 //
 // What bounds it on an H100 SXM, at the smoke's main-path pool (41,670
 // blocks of RS(4,2), T = 4096):
@@ -52,9 +54,10 @@
 //     group of four parity rows, one per crc'd byte): 1.71e9 at one 32-lane
 //     wavefront per clock per SM, 0.20 ms;
 //   * bound: the larger, 0.31 ms, set by the bytes.
-// The nibble split doubles the lookups the kernel issues (3.9e9 at RS(4,2),
-// with the lane operators): 0.47 ms of shared-memory wavefronts, so the
-// lookups and their index arithmetic, not the bytes, set its time.
+// The kernel issues more than that: two nibble lookups per byte, eight more
+// per row and thread for the lane operator, a shuffle fold per row, and the
+// index arithmetic of each lookup.  Issue, not bytes, sets its time
+// (PERF.md has the measurements).
 //
 // Any T >= 1, k + m up to 20 in shared memory (passes of up to four parity
 // row groups, data crcs in the first), 64-bit offsets, 16-byte loads where

@@ -338,12 +338,12 @@ def _fused_smem(m: int, k: int, multi_chunk: bool, device: str):
                 lib.ceph_ragged_fused_smem_limit())
 
 
-def fused_smem_bytes(m: int, k: int, T: int = K3_CHUNK, device="cuda"):
+def fused_smem_bytes(m: int, k: int):
     """(bytes, limit): the shared memory one block of K3 takes in its
-    first pass for k data rows, m parity rows and T-byte rows, and the
-    most a block may take on the card (builds the kernel; asked once per
-    shape and card)."""
-    return _fused_smem(m, k, T > K3_CHUNK, str(torch.device(device)))
+    first pass for k data rows, m parity rows and rows of one chunk, and
+    the most a block may take on the current card (builds the kernel;
+    asked once per shape)."""
+    return _fused_smem(m, k, False, "cuda")
 
 
 _NO_PARITY = np.zeros((0, 8), dtype=np.uint8)
@@ -358,12 +358,15 @@ def _launch_fused(bm: np.ndarray, pool: torch.Tensor):
     dev = pool.device
     key = str(dev)
     dcrc = torch.empty((G, k), dtype=torch.int64, device=dev)
+    tab_p = par_p = pcrc_p = None      # the crc leg reads no parity tables
     if m:
         parity = torch.empty((G, m, T), dtype=torch.uint8, device=dev)
         pcrc = torch.empty((G, m), dtype=torch.int64, device=dev)
-        tables = _nibble_tables_device(bm.tobytes(), *bm.shape, key)
+        tab_p = _nibble_tables_device(bm.tobytes(), *bm.shape,
+                                      key).data_ptr()
+        par_p, pcrc_p = parity.data_ptr(), pcrc.data_ptr()
     else:
-        parity, pcrc, tables = pool[:, :0], dcrc[:, :0], None
+        parity, pcrc = pool[:, :0], dcrc[:, :0]
     if G == 0:
         return parity, dcrc, pcrc
     need, limit = _fused_smem(min(m, 4), k, T > K3_CHUNK, key)
@@ -377,11 +380,8 @@ def _launch_fused(bm: np.ndarray, pool: torch.Tensor):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ceph_ragged_fused(
-            None if tables is None else tables.data_ptr(), ctab.data_ptr(),
-            wops.data_ptr(), pool.data_ptr(),
-            parity.data_ptr() if m else None, dcrc.data_ptr(),
-            pcrc.data_ptr() if m else None, G, k, m, T, _zero_crc(T),
-            stream)
+            tab_p, ctab.data_ptr(), wops.data_ptr(), pool.data_ptr(), par_p,
+            dcrc.data_ptr(), pcrc_p, G, k, m, T, _zero_crc(T), stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc} "
                            f"(pool {tuple(pool.shape)}, m {m})")

@@ -7,105 +7,52 @@ Each ``--tree`` (default: this checkout) is a root holding
 ``ceph_tpu_torch/``; each is timed in its own process, in the order
 given, so a change and its parent compare on one card within one call
 (give them as parent, change, change, parent).  Each process builds K3
-from its tree's ``csrc/ragged_fused.cu`` and times the wrapper
-``gf_pallas.fused_ragged_matmul`` at the shapes ``chip_smoke.py`` times:
-
-  * ``full_pool``: the ZeroWire path's whole pool, 1,024 objects of the
-    S3Serve mixed-size profile (seed 20261016) packed into 41,670 staged
-    4 KiB blocks of RS(4,2), [41670, 4, 4096];
-  * ``crc_leg_2MiB``: the crc leg alone (m = 0) at [512, 1, 4096];
-  * ``crc_leg_mean_frame``: the crc leg at the ZeroWire path's mean
-    verified frame, [70, 1, 4096].
-
-Device time is the mean of ``iters`` launches captured in one CUDA graph
-and replayed between CUDA events; call time is the mean of ``iters``
-back-to-back wrapper calls between CUDA events (host work included).
-Every result is checked against its first call.  One JSON line per tree
-and shape, with the card's ``nvidia-smi`` name and power limit; the
-lines also go to ``--out``.  Needs one card; imports no JAX.
+from its tree's ``csrc/ragged_fused.cu`` and runs this checkout's
+``chip_smoke.time_k3`` against that tree's package: K3 at the ZeroWire
+path's whole pool (1,024 S3Serve-profile objects, RS(4,2), 41,670
+staged 4 KiB blocks) and its crc leg at a 2 MiB frame and at the path's
+mean verified frame (70 blocks), device time by CUDA-graph replay and
+call time between CUDA events, beside the bound and the plain version.
+One JSON line per tree and shape, each with the tree and the card's
+``nvidia-smi`` name and power limit; the lines also go to ``--out``.
+Needs one card; imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
-SEED = 20261016
-SHAPES = (("full_pool", 10), ("crc_leg_2MiB", 200),
-          ("crc_leg_mean_frame", 200))
-MEAN_FRAME_BLOCKS = 70
+HERE = os.path.dirname(os.path.abspath(__file__))
+MEAN_FRAME_BLOCKS = 70      # chip_smoke's ZeroWire path: 2,010,537,984
+                            # crc'd bytes / 4096 / 7,033 dispatches
 
 
 def _one(tree: str, out_path: str) -> None:
     sys.path.insert(0, os.path.abspath(tree))
-    import numpy as np
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)      # imports the tree's ceph_tpu_torch
     import torch
-    from ceph_tpu_torch.ops import gf, gf_pallas, ragged_fused
+    from ceph_tpu_torch.ops import ragged_fused
 
     if not torch.cuda.is_available():
-        sys.exit("k3_timing: no CUDA card")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    raw = rng.zipf(1.3, size=1024).astype(np.float64)
-    sizes = np.clip((raw * 1024).astype(np.int64), 1, 1 << 20)
-    shards = [rng.integers(0, 256, size=(4, int(L)), dtype=np.uint8)
-              for L in sizes]
-    pool = torch.from_numpy(ragged_fused.pack(shards).pool).to(dev)
-    frame = torch.randint(0, 256, (512, 1, 4096), dtype=torch.uint8,
-                          device=dev, generator=torch.Generator(device=dev)
-                          .manual_seed(SEED))
-    rs42 = gf.gf8_bitmatrix(gf.isa_rs_parity(4, 2))
-    none = np.zeros((0, 8), dtype=np.uint8)
-    cases = {"full_pool": (rs42, pool), "crc_leg_2MiB": (none, frame),
-             "crc_leg_mean_frame": (none, frame[:MEAN_FRAME_BLOCKS])}
-    for name, iters in SHAPES:
-        bitmat, data = cases[name]
+        smoke.fail("k3_timing: torch.cuda.is_available() is false")
 
-        def call():
-            return gf_pallas.fused_ragged_matmul(bitmat, data)
-        first = call()
-        torch.cuda.synchronize()
-        outs = []
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(iters):
-                outs.append(call())
-        g.replay()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        ms = a.elapsed_time(b) / iters
-        for o in (outs[0], outs[-1]):
-            if not all(torch.equal(x, y) for x, y in zip(first, o)):
-                sys.exit(f"k3_timing: a replayed call differs at {name}")
-        del outs, g
-        for _ in range(2):
-            call()
-        torch.cuda.synchronize()
-        a.record()
-        for _ in range(iters):
-            call()
-        b.record()
-        b.synchronize()
-        rec = {"tree": tree, "shape": name, "pool": list(data.shape),
-               "m": bitmat.shape[0] // 8, "ms": ms,
-               "call_ms": a.elapsed_time(b) / iters, "iters": iters,
-               "gpu": card}
-        line = json.dumps(rec)
+    def emit(obj) -> None:
+        line = json.dumps({"tree": tree, **obj})
         print(line, flush=True)
         if out_path:
             with open(out_path, "a") as f:
                 f.write(line + "\n")
+    smoke.emit = emit
+    pool = ragged_fused.pack(smoke.zerowire_shards()).pool
+    smoke.time_k3(pool, MEAN_FRAME_BLOCKS, torch.device("cuda"),
+                  smoke.gpu_line())
 
 
 def main() -> int:
@@ -118,8 +65,7 @@ def main() -> int:
     if args.one:
         _one(args.one, args.out)
         return 0
-    here = os.path.dirname(os.path.abspath(__file__))
-    for tree in args.tree or [here]:
+    for tree in args.tree or [HERE]:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
                         tree, "--out", args.out], check=True, timeout=1200)
     return 0
