@@ -1,15 +1,14 @@
-// Device helpers shared by K2 (gf_bitplane.cu) and K3 (ragged_fused.cu): the
-// byte-table GF(2^8) product's loads, the accumulator transpose, and the
-// launch-time queries.  Each .cu is its own shared library, so everything
-// here lives in an anonymous namespace and is compiled into both.
+// Device helpers of K3 (ragged_fused.cu) -- the 16-byte loads and the
+// accumulator transpose of its table GF(2^8) product -- and the launch-time
+// queries that K2 (gf_bitplane.cu) shares with it.  Each .cu is its own
+// shared library, so everything here lives in an anonymous namespace and is
+// compiled into both.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kTableWords = 256;           // entries per (group, row) table
 
 // 16 bytes at p into four little-endian words: one 16-byte load when VEC
 // (p 16-byte aligned), else byte loads of the first `left` bytes (the rest 0)
@@ -42,21 +41,6 @@ __device__ __forceinline__ uint32_t gather_row(const uint32_t (&acc)[16],
     const uint32_t lo = __byte_perm(acc[4 * q + 0], acc[4 * q + 1], sel);
     const uint32_t hi = __byte_perm(acc[4 * q + 2], acc[4 * q + 3], sel);
     return __byte_perm(lo, hi, 0x5410);
-}
-
-// acc[g][p] ^= tab_g[byte p of w], for G packed row groups (tables of one
-// data row, groups `tstride` words apart)
-template <int G>
-__device__ __forceinline__ void table_xor(uint32_t (&acc)[G > 0 ? G : 1][16],
-                                          const uint32_t (&w)[4],
-                                          const uint32_t* tj, int tstride) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-        const uint32_t* tg = tj + g * tstride;
-#pragma unroll
-        for (int p = 0; p < 16; ++p)
-            acc[g][p] ^= tg[(w[p >> 2] >> (8 * (p & 3))) & 0xFFu];
-    }
 }
 
 inline int device_attr(cudaDeviceAttr attr, int fallback) {

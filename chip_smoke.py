@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      card at the main path's shapes (K1: RS(8,3) encode, a 3-erasure
      decode, a per-stripe-signature rebuild, a ragged word count; K2: the
      per-object put [4, 8, 131072], the batched encode [128, 8, 131072],
-     a 3-erasure decode and a ragged L = 131071; K3: a 512-block chunk of
+     a 3-erasure decode, a ragged L = 131071, a random 20-row bit-matrix
+     over 32 data rows, a data pointer one byte off alignment and
+     L = 13; K3: a 512-block chunk of
      the ZeroWire pool (RS(4,2)), RS(8,3), k + m = 20 with a random
      bit-matrix, a 1-byte, an exact-block and a block + 1 object, a
      513-block RS(4,2) pool one byte off 16-byte alignment, and its crc
@@ -36,7 +38,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      a layout=bytes pool (host tier, K2), one after the other: put_many of
      64 x 4 MiB objects, 3 OSDs of the first object's up set killed, every
      object read, the three marked out, recover_all, every object read
-     again, map_pgs_batch before and after;
+     again, map_pgs_batch before and after; the byte pool's K2 launches
+     are counted by shape in each phase;
   6. the ZeroWire ingest path of the wire tier: 1,024 objects of the
      S3Serve mixed-size profile (zipf(1.3) x 1 KiB, clipped to
      [1 B, 1 MiB], RS(4,2)) through ``ragged_fused.encode`` on the card
@@ -52,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   7. time each kernel beside its bound and its plain version: device time
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
-     CUDA events (host work included).
+     CUDA events (host work included); K2 also beside its launch floor,
+     an empty kernel at K2's grid replayed the same way.
 
 Around each path of phases 3-6 the kernels' launch counts are set to 0
 just before and read just after: K1's must equal the bitsliced paths'
@@ -309,22 +313,31 @@ def k2_shapes(device, gen):
     """K2's main-path shapes: the byte pool's per-object put [4, 8, 131072]
     (a 4 MiB object is 4 stripes of 8 x 128 KiB), the batched encode
     [128, 8, 131072], a 3-erasure decode of one object and a ragged
-    L = 131071.  {name: (bitmat, data)}."""
+    L = 131071; and its edges: a random bit-matrix of 20 output rows over
+    32 data rows (two passes, paired row groups) at L = 4097, a data
+    pointer one byte off alignment, and L = 13.  {name: (bitmat, data)}."""
     enc = gf.gf8_bitmatrix(gf.vandermonde_parity(K, M))
     G = gf.generator_matrix(gf.vandermonde_parity(K, M))
     erased = [1, 4, 9]
     avail = [c for c in range(K + M) if c not in erased][:K]
     dec = gf.gf8_bitmatrix(gf.gf_matmul(G[erased],
                                         gf.gf_gaussian_inverse(G[avail])))
+    wide = np.random.default_rng(SEED).integers(0, 2, size=(160, 256),
+                                                dtype=np.uint8)
 
     def data(shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8,
                              device=device, generator=gen)
 
-    return {"put": (enc, data((4, K, 131072))),
-            "encode": (enc, data((128, K, 131072))),
-            "decode": (dec, data((4, K, 131072))),
-            "ragged": (enc, data((4, K, 131071)))}
+    shapes = {"put": (enc, data((4, K, 131072))),
+              "encode": (enc, data((128, K, 131072))),
+              "decode": (dec, data((4, K, 131072))),
+              "ragged": (enc, data((4, K, 131071)))}
+    flat = data((2 * K * 4096 + 1,))
+    shapes.update({"wide": (wide, data((3, 32, 4097))),
+                   "unaligned": (enc, flat[1:].view(2, K, 4096)),
+                   "tiny": (enc, data((3, K, 13)))})
+    return shapes
 
 
 def k2_checks(device, shapes) -> dict:
@@ -617,6 +630,17 @@ def cluster_step(device, layout: str, n_objects: int = 64,
              for _ in names]
     times = {}
     phase_launches = {}
+    # K2's launch shapes per phase ("B,k,L->m": launches), observed by a
+    # pass-through around the wrapper's launch
+    k2_shapes_seen = {}
+    phase_now = ["put_many"]
+    launch_k2 = gf_pallas._launch
+
+    def observed_launch(bm, d3, m):
+        h = k2_shapes_seen.setdefault(phase_now[0], {})
+        key = ",".join(map(str, d3.shape)) + f"->{m}"
+        h[key] = h.get(key, 0) + 1
+        return launch_k2(bm, d3, m)
 
     def mark(phase):
         phase_launches[phase] = [xor_kernel.launches, gf_pallas.launches]
@@ -625,6 +649,7 @@ def cluster_step(device, layout: str, n_objects: int = 64,
     xor_kernel.launches = 0
     gf_pallas.launches = 0
     c0 = counters()
+    gf_pallas._launch = observed_launch
     try:
         t0 = time.perf_counter()
         up0, _ = om.map_pgs_batch(1)
@@ -641,6 +666,7 @@ def cluster_step(device, layout: str, n_objects: int = 64,
         victims = [o for o in up if o != ITEM_NONE][:M]
         for v in victims:
             sim.kill_osd(v)
+        phase_now[0] = "degraded_get"
         t0 = time.perf_counter()
         gets = [sim.get(1, nm) for nm in names]
         times["degraded_get_s"] = time.perf_counter() - t0
@@ -649,6 +675,7 @@ def cluster_step(device, layout: str, n_objects: int = 64,
             fail(f"cluster step ({layout}): a degraded read differs")
         for v in victims:
             sim.out_osd(v)
+        phase_now[0] = "recover_all"
         t0 = time.perf_counter()
         rec = sim.recover_all(1)
         sync(device)
@@ -657,6 +684,7 @@ def cluster_step(device, layout: str, n_objects: int = 64,
         t0 = time.perf_counter()
         up1, _ = om.map_pgs_batch(1)
         times["remap_s"] = time.perf_counter() - t0
+        phase_now[0] = "get_after_recovery"
         t0 = time.perf_counter()
         gets2 = [sim.get(1, nm) for nm in names]
         times["get_after_recovery_s"] = time.perf_counter() - t0
@@ -664,6 +692,7 @@ def cluster_step(device, layout: str, n_objects: int = 64,
         if gets2 != datas:
             fail(f"cluster step ({layout}): a read after recovery differs")
     finally:
+        gf_pallas._launch = launch_k2
         sim.shutdown()
     _, _, p1, p2, disp, rebuild = (b - a for a, b in zip(c0, counters()))
     k1, k2 = xor_kernel.launches, gf_pallas.launches
@@ -684,7 +713,7 @@ def cluster_step(device, layout: str, n_objects: int = 64,
                              .any(axis=1).sum()),
             "recover": rec, "ec_dispatches": disp,
             "rebuild_dispatches": rebuild, "k1_launches": k1,
-            "k2_launches": k2,
+            "k2_launches": k2, "k2_launch_shapes": k2_shapes_seen,
             "cumulative_launches_k1_k2": phase_launches, **times}
 
 
@@ -1069,10 +1098,13 @@ def gpu_line() -> str:
 
 
 def time_k2(shapes, card: str) -> dict:
-    """K2's device time at the batched encode and put shapes beside its
-    bound and its plain version."""
+    """K2's device time at the batched encode, put, decode and ragged
+    shapes beside its bound, its plain version and its launch floor (an
+    empty kernel at K2's grid, by graph replay like K2; None where the
+    package has no floor entry point)."""
     out = {}
-    for name in ("encode", "put"):
+    floor = getattr(gf_pallas, "bitplane_floor", None)
+    for name in ("encode", "put", "decode", "ragged"):
         bitmat, data = shapes[name]
         B, k, L = data.shape
         m = bitmat.shape[0] // 8
@@ -1084,6 +1116,10 @@ def time_k2(shapes, card: str) -> dict:
                           iters=50)
         if gf_pallas.launches - n0 != 2 + 50 + 2 + 50:
             fail("K2 timing: a wrapper call did not launch the kernel")
+        floor_ms = None if floor is None else \
+            graph_ms(lambda: floor(m, data), iters=50)
+        if gf_pallas.launches - n0 != 2 + 50 + 2 + 50:
+            fail("K2 timing: the floor counted a K2 launch")
         plain_ms = cuda_ms(lambda: gf_jax.bitplane_matmul(bm_dev, data),
                            iters=3, warmup=1)
         bound_ms, bound_by, nbytes, ops = k2_bound(B, k, m, L)
@@ -1091,7 +1127,7 @@ def time_k2(shapes, card: str) -> dict:
                      "bound_by": bound_by}
         emit({"phase": "timing", "kernel": "gf_bitplane", "shape": name,
               "data": list(data.shape), "out": [B, m, L], "ms": ms,
-              "call_ms": call_ms,
+              "call_ms": call_ms, "floor_ms": floor_ms,
               "plain_ms": plain_ms, "bytes": nbytes, "lookups": ops,
               "bound_ms": bound_ms, "bound_by": bound_by,
               "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,

@@ -11,6 +11,7 @@ and wrong ones fail the next read.
 import os
 
 import pytest
+import torch
 
 from ceph_tpu.cluster.bluestore import BlueStore as RefBlueStore
 from ceph_tpu.cluster.objectstore import Transaction as RefTransaction
@@ -22,6 +23,11 @@ from ceph_tpu_torch.cluster.objectstore import (ChecksumError,
 from ceph_tpu_torch.common import crcutil
 from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.native_bridge import AllocatorError
+
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
 
 C = (1, 0)
 

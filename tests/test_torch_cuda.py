@@ -21,6 +21,11 @@ from ceph_tpu.ops import gf2 as gf2_ref
 from ceph_tpu_torch.ec import instance
 from ceph_tpu_torch.ops import gf, gf2, gf_jax, gf_pallas, xor_kernel
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -246,6 +251,90 @@ def test_k2_twenty_chunks_and_random_bitmatrices(card):
     bm = np.random.default_rng(10).integers(0, 2, size=(160, 72),
                                             dtype=np.uint8)
     check_k2(card, bm, rand_bytes((3, 9, 1001), 11))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 8, 4096),          # 4 blocks: far under one wave
+    (4, 8, 131072),        # the put: 512 blocks of 8 bytes a thread
+    (40, 8, 131072),       # 2,560 blocks of 16 bytes a thread
+    (128, 8, 131072),      # 8,192 blocks: many waves
+])
+def test_k2_grids_under_one_wave_and_over_several(card, shape):
+    bitmat = gf.gf8_bitmatrix(gf.vandermonde_parity(8, 3))
+    check_k2(card, bitmat, rand_bytes(shape, shape[0]))
+
+
+@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("m", range(1, 21))
+def test_k2_every_row_count_up_to_twenty(card, m, k):
+    """Single, paired and paired + single row groups, two passes from
+    m = 17, one to four row batches, on random bit-matrices."""
+    rng = np.random.default_rng(100 * m + k)
+    bm = rng.integers(0, 2, size=(8 * m, 8 * k), dtype=np.uint8)
+    check_k2(card, bm, rng.integers(0, 256, size=(2, k, 4097),
+                                    dtype=np.uint8))
+
+
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 4095, 4097])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k2_column_edges_and_unaligned_data(card, L, offset):
+    bm = np.random.default_rng(L).integers(0, 2, size=(40, 160),
+                                           dtype=np.uint8)
+    n = 3 * 20 * L
+    flat = torch.from_numpy(rand_bytes(n + offset, L + offset)).to(card)
+    data = flat[offset:].view(3, 20, L)
+    assert data.data_ptr() % 16 == offset
+    check_k2(card, bm, None, data)
+
+
+def test_k2_captured_in_a_cuda_graph_equals_eager(card):
+    """K2 calls captured into a CUDA graph (the put and a wide random
+    bit-matrix) replay to the eager outputs and re-read their input on
+    every replay."""
+    enc = gf.gf8_bitmatrix(gf.vandermonde_parity(8, 3))
+    wide = np.random.default_rng(24).integers(0, 2, size=(160, 256),
+                                              dtype=np.uint8)
+    put = torch.from_numpy(rand_bytes((4, 8, 131072), 25)).to(card)
+    other = torch.from_numpy(rand_bytes((3, 32, 4097), 26)).to(card)
+
+    def call():
+        return (gf_pallas.bitplane_matmul(enc, put),
+                gf_pallas.bitplane_matmul(wide, other))
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = call()
+    for new_seed in (None, 27):
+        if new_seed is not None:
+            put.copy_(torch.from_numpy(rand_bytes((4, 8, 131072),
+                                                  new_seed)))
+            other.copy_(torch.from_numpy(rand_bytes((3, 32, 4097),
+                                                    new_seed + 1)))
+        g.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        for c, e in zip(captured, eager):
+            assert torch.equal(c, e)
+    assert torch.equal(captured[0].cpu(), gf_jax.bitplane_matmul(
+        torch.as_tensor(enc), put.cpu()))
+
+
+@pytest.mark.parametrize("shape,m", [
+    ((4, 8, 131072), 3), ((128, 8, 131072), 3), ((3, 32, 4097), 20),
+    ((2, 20, 1), 17), ((1, 1, 13), 1), ((3, 200, 4096), 4),
+])
+def test_k2_floor_refuses_nothing_k2_accepts(card, shape, m):
+    """The launch floor takes every shape K2 takes, launches, and counts
+    no K2 launch."""
+    bm = np.random.default_rng(m).integers(0, 2, size=(8 * m, 8 * shape[1]),
+                                           dtype=np.uint8)
+    data = torch.from_numpy(rand_bytes(shape, m)).to(card)
+    check_k2(card, bm, None, data)
+    launches = gf_pallas.launches
+    gf_pallas.bitplane_floor(m, data)
+    torch.cuda.synchronize()
+    assert gf_pallas.launches == launches
 
 
 def test_k2_wrong_inputs_raise(card):

@@ -27,6 +27,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                 "scripts"))
 from gen_ec_corpus import payload, profile_for  # noqa: E402
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 TECHNIQUES = ("reed_sol_van", "cauchy", "cauchy_good", "isa_rs")
 CASES = [(t, k, m) for t in TECHNIQUES for k, m in ((4, 2), (8, 3))]
 CHUNK = 64            # bytes per chunk: W = 16 words, 2 per plane

@@ -25,6 +25,11 @@ from ceph_tpu_torch.cluster import ec_backend as port_backend
 from ceph_tpu_torch.ec import instance
 from ceph_tpu_torch.ops import gf, gf2, xor_kernel
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 N_OSDS = 12
 POOL = 3
 CASES = [(4, 2, 64), (4, 2, 4096), (8, 3, 256), (8, 3, 4096)]

@@ -8,6 +8,11 @@ import torch
 import __graft_entry__
 from ceph_tpu_torch import entry
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 
 def test_entry_inputs_equal_reference():
     fn, (masks, words) = entry.entry()

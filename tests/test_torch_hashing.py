@@ -14,6 +14,11 @@ import torch
 from ceph_tpu.ops import hashing as ref
 from ceph_tpu_torch.ops import hashing as port
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "hash_vectors.json")
 EDGES = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1], dtype=np.uint32)

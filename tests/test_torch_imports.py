@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ceph_tpu_torch, and not
-chip_smoke.py, imports JAX or the reference package; its entry points
+"""The port stands alone: no module of ceph_tpu_torch, and none of its
+root scripts (chip_smoke.py, kernel_timing.py, k2_variants.py), imports
+JAX or the reference package; its entry points
 default to the card and never fall back to the CPU on their own."""
 import ast
 import pathlib
@@ -9,13 +10,19 @@ import torch
 
 import ceph_tpu_torch
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
 
 
 def port_files():
     return sorted((REPO / "ceph_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py", REPO / "kernel_timing.py",
+         REPO / "k2_variants.py"]
 
 
 def imported_roots(path):

@@ -9,6 +9,7 @@ affinity and out/down OSDs in play.  Mirrors tests/test_osdmap.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import ceph_tpu_torch
 from ceph_tpu.cluster.osdmap import (MAX_PRIMARY_AFFINITY, OSDMap, PGPool,
@@ -19,6 +20,11 @@ from ceph_tpu.placement.crush_map import (
     RULE_TAKE, Rule)
 from ceph_tpu_torch import convert
 from ceph_tpu_torch.cluster import osdmap as port_osdmap
+
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import ceph_tpu_torch
 from ceph_tpu.placement import scalar_mapper as ref_scalar
@@ -29,6 +30,11 @@ from ceph_tpu.placement.crush_map import (
 from ceph_tpu_torch import convert
 from ceph_tpu_torch.placement import xla_mapper as port_xla
 from ceph_tpu_torch.placement.crush_map import CrushMap as PortCrushMap
+
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "crush_vectors.json")

@@ -36,6 +36,11 @@ from ceph_tpu_torch.common.options import config
 from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.ops import gf, gf_pallas, ragged_fused
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 K, M = 4, 2
 SIZES = [1, 5, 700, 4096, 4097, 8192, 12289]
 

@@ -12,11 +12,17 @@ follow: mixed sizes in two stripe classes, a kill beyond m.
 """
 import numpy as np
 import pytest
+import torch
 
 import ceph_tpu_torch
 from ceph_tpu_torch import entry
 from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.ops import gf_pallas, xor_kernel
+
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
 
 KEYS = ("placed", "gets", "gets2", "rec", "up0", "up1", "victims")
 # the dry run's 2 x n_devices objects at n_devices = 4 (each stripe class

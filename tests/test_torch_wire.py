@@ -30,6 +30,11 @@ from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.msg import encoding, wire
 from ceph_tpu_torch.ops import crc32_gf2
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def on_cpu():
@@ -133,6 +138,27 @@ def test_crc32_blocks_counts_and_rejects(on_cpu):
     with pytest.raises(TypeError):
         crc32_gf2.crc32_blocks(torch.zeros((3, 64), dtype=torch.int32),
                                block=64)
+
+
+def test_crc32_blocks_of_an_empty_batch(on_cpu):
+    """Intended divergence: the reference's jnp reshape divides by the
+    batch size and raises; the port returns no crcs.  No caller sends an
+    empty batch (csums_many dispatches only with a full block)."""
+    empty = np.zeros((0, 4096), np.uint8)
+    with pytest.raises(ZeroDivisionError):
+        ref_crc.crc32_blocks(empty)
+    got = crc32_gf2.crc32_blocks(empty)
+    assert got.dtype == np.uint32 and got.shape == (0,)
+
+
+def test_crc32_blocks_plain_refuses_blocks_of_2_mib():
+    """Intended divergence: the plain version's float32 product is exact
+    only below 2^21-byte blocks, so it refuses a 2 MiB block instead of
+    returning an inexact crc (the reference's int32 product takes any
+    size; on the card K3's crc leg does)."""
+    with pytest.raises(ValueError, match="2\\^21-byte"):
+        crc32_gf2.crc32_blocks_plain(
+            torch.zeros((1, 2 << 20), dtype=torch.uint8))
 
 
 # ------------------------------------------------------------ wire frames --

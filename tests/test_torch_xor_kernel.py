@@ -18,6 +18,11 @@ from ceph_tpu.ops import gf2 as gf2_ref
 from ceph_tpu.ops import xor_kernel as xk_ref
 from ceph_tpu_torch.ops import gf, gf2, xor_kernel
 
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
+
 PARITY = {"reed_sol_van": "vandermonde_parity",
           "cauchy": "isa_cauchy_parity",
           "cauchy_good": "cauchy_good_parity",

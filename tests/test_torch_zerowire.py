@@ -18,6 +18,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 import ceph_tpu_torch
 from ceph_tpu.cluster.bluestore import BlueStore as RefBlueStore
@@ -33,6 +34,11 @@ from ceph_tpu_torch.common.options import config
 from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.msg import encoding, wire
 from ceph_tpu_torch.ops import gf, ragged_fused
+
+# One intra-op thread per test process: the suite runs under several
+# xdist workers, and a full torch pool in each oversubscribes the
+# cores and starves the tests that run beside them.
+torch.set_num_threads(1)
 
 K, M = 4, 2
 SIZES = [1, 4096, 4097, 9000, 12288]
