@@ -59,9 +59,9 @@ from .crush_map import (
     RULE_SET_CHOOSE_TRIES, RULE_TAKE, CrushMap,
 )
 from .xla_mapper import (
-    CompiledMap, DeviceTables, UnsupportedMapError, compile_map)
+    CompiledMap, DeviceTables, UnsupportedMapError, _is_out,
+    _straw2_select, compile_map)
 
-_INF = float("inf")
 _OK, _REJECT, _SKIP = 0, 1, 2
 _I64 = torch.int64
 
@@ -203,38 +203,7 @@ class _DevLevel:
         return tuple(torch.take_along_dim(t, jj, dim=1)[:, 0] for t in tables)
 
 
-def _is_out_batch(weights: torch.Tensor, item: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
-    """Device overload rejection (mapper.c:424-438), batched over [L]."""
-    n = weights.shape[0]
-    w = weights[item.clamp(0, n - 1)]
-    oob = item >= n
-    hashed = (hashing.jx_hash2(x, item) & 0xFFFF) >= w
-    return oob | ((w < 0x10000) & ((w == 0) | hashed))
-
-
 # ---------------------------------------------------------------- descent ---
-
-def _straw2_select(dt: DeviceTables, u, w, sizes) -> torch.Tensor:
-    """Exact argmin of the straw2 draws over the item axis -> j [L].
-
-    The reference draw is trunc_div(crush_ln(u) - 2^48, weight) maximized
-    with first-index tie-break; negated, q = numer // w minimized.  q is
-    the float64 quotient corrected one step each way: the dividend is
-    below 2^48 and every product below 2^53, so q is the exact integer
-    quotient.  torch.argmin returns the first minimum, the scalar scan's
-    tie-break."""
-    Sl = u.shape[1]
-    valid = (w > 0) & \
-        (torch.arange(Sl, device=u.device) < sizes[:, None])
-    a = dt.ln_numer(u)
-    wf = w.to(torch.float64)
-    q = torch.floor(a / wf.clamp(min=1.0))
-    q = q - (q * wf > a).to(q.dtype)
-    q = q + ((q + 1.0) * wf <= a).to(q.dtype)
-    q = torch.where(valid, q, torch.full_like(q, _INF))
-    return torch.argmin(q, dim=1)
-
 
 def _descend_batch(levels: List[_DevLevel], dt: DeviceTables,
                    target_type: int, row0, x, r, want_leafrow: bool):
@@ -436,12 +405,12 @@ class _FastChoose:
                 l_dev = torch.full(shape, ITEM_NONE, dtype=_I64,
                                    device=x.device)
                 l_st = torch.full(shape, _SKIP, dtype=_I64, device=x.device)
-            l_out = _is_out_batch(
+            l_out = _is_out(
                 weights, l_dev.reshape(-1),
                 x.repeat_interleave(l_dev.numel() // N)).reshape(l_dev.shape)
             leaf_pack = (l_dev, l_st, l_out)
         if spec.target_type == 0:
-            p_out = _is_out_batch(
+            p_out = _is_out(
                 weights, p_item.reshape(-1),
                 x.repeat_interleave(p_item.numel() // N)) \
                 .reshape(p_item.shape)

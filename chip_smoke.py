@@ -32,7 +32,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``OSDMap.map_pgs_batch`` over 2^20 PGs, then 100 OSDs out and the
      remap through both ``map_pgs_batch`` and ``map_batch_delta``; every
      lane of both sweeps held against the native C++ mapper;
-  5. the cluster step: a 32-host x 4-OSD map (TAKE root, CHOOSELEAF_INDEP
+  5. general placement, the per-lane mapper outside the fast subset: a
+     10,000-OSD map made before straw2 (25 racks x 40 hosts x 10 OSDs,
+     every bucket ``alg straw``, straw_calc_version 1, the hammer
+     tunables) written as crushmap text and compiled by the port's
+     compiler; a 3-replica pool (CHOOSELEAF_FIRSTN host) and an EC 4+2
+     pool (CHOOSE_INDEP 3 rack, then CHOOSELEAF_INDEP 2 host) of 2^20
+     PGs each through ``OSDMap.map_pgs_batch``, 100 OSDs out, both
+     remapped and the replicated pool through ``map_batch_delta``; every
+     lane against the native C++ mapper, no out OSD keeping a PG, no lane
+     recomputed on the host, the general trace counted as run; then each
+     legacy algorithm alone (the golden uniform, list, tree and straw
+     maps, the mixed-algorithm hierarchy and a tree whose root node
+     weighs 3 x 2^31) at 65,536 lanes against the native mapper;
+  6. the cluster step: a 32-host x 4-OSD map (TAKE root, CHOOSELEAF_INDEP
      host, EMIT), one ClusterSim per RS(8,3) pool (pg_num 256,
      stripe_unit 128 KiB): the default bitsliced pool (HBM-staged, K1) and
      a layout=bytes pool (host tier, K2), one after the other: put_many of
@@ -40,7 +53,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      object read, the three marked out, recover_all, every object read
      again, map_pgs_batch before and after; the byte pool's K2 launches
      are counted by shape in each phase;
-  6. the ZeroWire ingest path of the wire tier: 1,024 objects of the
+  7. the ZeroWire ingest path of the wire tier: 1,024 objects of the
      S3Serve mixed-size profile (zipf(1.3) x 1 KiB, clipped to
      [1 B, 1 MiB], RS(4,2)) through ``ragged_fused.encode`` on the card
      (K3: parity and per-4 KiB crcs in one pass), every shard sent as a
@@ -52,19 +65,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      one frame with a flipped bit rejected; parity held to K2, every
      sub-crc to zlib, every byte read back, and the scan counters to
      "no full block scanned on the host";
-  7. time each kernel beside its bound and its plain version: device time
+  8. time each kernel beside its bound and its plain version: device time
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
      CUDA events (host work included); K2 also beside its launch floor,
      an empty kernel at K2's grid replayed the same way.
 
-Around each path of phases 3-6 the kernels' launch counts are set to 0
-just before and read just after: K1's must equal the bitsliced paths'
-dispatches, K2's the byte pool's ``ec.jax`` encode + decode dispatches,
-K3's the ZeroWire path's encode launches plus its device crc
-dispatches, and no plain version may run.  Earlier lines print the card
-(``nvidia-smi --query-gpu=name,power.limit``), the numbers as JSON, and
-the ``{"kernels": [...]}`` line; the last line is
+Around each path of phases 3, 6 and 7 the kernels' launch counts are
+set to 0 just before and read just after: K1's must equal the bitsliced
+paths' dispatches, K2's the byte pool's ``ec.jax`` encode + decode
+dispatches, K3's the ZeroWire path's encode launches plus its device crc
+dispatches, and no plain version may run.  The placement phases 4 and 5
+run no kernel, and phase 5 fails if a count moves.  Earlier lines print
+the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
+JSON, and the ``{"kernels": [...]}`` line; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -484,14 +498,15 @@ def run_slice(device, gen, n_objects: int, obj_bytes: int,
             "put_s": t_put, "read_s": t_read, "rebuild_s": t_rebuild}
 
 
-def native_rows(nm, xs, result_max: int, weights) -> np.ndarray:
+def native_rows(nm, xs, result_max: int, weights,
+                ruleno: int = 0) -> np.ndarray:
     """The native C++ mapper over ``xs`` on every CPU core (each ctypes
     call releases the GIL; the mapper keeps no shared state)."""
     n = os.cpu_count() or 1
     parts = np.array_split(np.asarray(xs), n)
     with ThreadPoolExecutor(n) as pool:
         outs = list(pool.map(
-            lambda p: nm.map_batch(0, p, result_max, weights), parts))
+            lambda p: nm.map_batch(ruleno, p, result_max, weights), parts))
     return np.concatenate(outs)
 
 
@@ -585,6 +600,242 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
+# the general-placement cluster: a 10,000-OSD map made before straw2
+# existed and never converted (every bucket straw v1, hammer tunables)
+GP_RACKS, GP_HOSTS, GP_OSDS = 25, 40, 10
+GP_LANES = 1 << 16        # lanes of each legacy-algorithm map
+
+
+def straw_cluster_text(seed: int = SEED) -> str:
+    """Crushmap text: root default -> 25 racks -> 40 hosts each -> 10 OSDs
+    each, OSD weights seeded in [0.5, 2.0], alg straw everywhere with
+    straw_calc_version 1, the hammer tunables; rule 0 replicates over
+    hosts, rule 1 places an EC 4+2 pool as 3 racks x 2 hosts."""
+    rng = np.random.default_rng(seed)
+    n = GP_RACKS * GP_HOSTS * GP_OSDS
+    lines = ["tunable choose_local_tries 0",
+             "tunable choose_local_fallback_tries 0",
+             "tunable choose_total_tries 50",
+             "tunable chooseleaf_descend_once 1",
+             "tunable chooseleaf_vary_r 1",
+             "tunable chooseleaf_stable 0",
+             "tunable straw_calc_version 1", ""]
+    lines += [f"device {i} osd.{i}" for i in range(n)]
+    lines += ["", "type 0 osd", "type 1 host", "type 3 rack",
+              "type 10 root", ""]
+    weights = 0.5 + 1.5 * rng.random(n)
+    bid = -1
+    racks = []
+    for r in range(GP_RACKS):
+        hosts = []
+        for h in range(GP_HOSTS):
+            name = f"host-{r}-{h}"
+            lines += [f"host {name} {{", f"    id {bid}", "    alg straw",
+                      "    hash 0"]
+            base = (r * GP_HOSTS + h) * GP_OSDS
+            lines += [f"    item osd.{i} weight {weights[i]:.5f}"
+                      for i in range(base, base + GP_OSDS)]
+            lines.append("}")
+            hosts.append(name)
+            bid -= 1
+        lines += [f"rack rack-{r} {{", f"    id {bid}", "    alg straw",
+                  "    hash 0"] + [f"    item {h}" for h in hosts] + ["}"]
+        racks.append(f"rack-{r}")
+        bid -= 1
+    lines += ["root default {", f"    id {bid}", "    alg straw",
+              "    hash 0"] + [f"    item {r}" for r in racks] + ["}", ""]
+    lines += ["rule replicated_rule {", "    id 0", "    type replicated",
+              "    step take default", "    step chooseleaf firstn 0 type host",
+              "    step emit", "}",
+              "rule ec42_rack_host {", "    id 1", "    type erasure",
+              "    step take default", "    step choose indep 3 type rack",
+              "    step chooseleaf indep 2 type host", "    step emit", "}"]
+    return "\n".join(lines) + "\n"
+
+
+def legacy_maps():
+    """(name, map, result_max) for each legacy algorithm alone: the golden
+    maps 5-8 (flat uniform, list, tree, straw), the mixed-algorithm
+    hierarchy of the reference's legacy tests, and a flat tree whose
+    root node weighs 3 x 2^31 (the u64 draw's range)."""
+    from ceph_tpu_torch.placement.crush_map import (
+        BUCKET_LIST, BUCKET_STRAW, BUCKET_STRAW2, BUCKET_TREE,
+        BUCKET_UNIFORM, RULE_CHOOSE_FIRSTN, RULE_CHOOSE_INDEP,
+        RULE_CHOOSELEAF_FIRSTN, RULE_CHOOSELEAF_INDEP, RULE_EMIT,
+        RULE_TAKE, Bucket, CrushMap, Rule, Tunables, WEIGHT_ONE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "tests", "golden",
+                           "crush_vectors.json")) as f:
+        specs = json.load(f)["specs"]
+    out = [(specs[i]["name"], CrushMap.from_spec(specs[i]), 3)
+           for i in range(5, 9)]
+    rng = np.random.default_rng(7)
+    m = CrushMap(tunables=Tunables.profile("jewel"))
+    algs = [BUCKET_UNIFORM, BUCKET_LIST, BUCKET_TREE, BUCKET_STRAW,
+            BUCKET_STRAW2, BUCKET_LIST]
+    host_w = []
+    for h, alg in enumerate(algs):
+        items = list(range(3 * h, 3 * h + 3))
+        if alg == BUCKET_UNIFORM:
+            w, bw = [WEIGHT_ONE], 3 * WEIGHT_ONE
+        else:
+            w = [int(WEIGHT_ONE * (0.5 + rng.random())) for _ in items]
+            bw = sum(w)
+        m.add_bucket(Bucket(id=-(h + 1), alg=alg, type=1, items=items,
+                            weights=w))
+        host_w.append(bw)
+    m.add_bucket(Bucket(id=-7, alg=BUCKET_STRAW2, type=10,
+                        items=[-(h + 1) for h in range(6)], weights=host_w))
+    m.finalize()
+    for op in (RULE_CHOOSELEAF_FIRSTN, RULE_CHOOSELEAF_INDEP):
+        m.add_rule(Rule(steps=[(RULE_TAKE, -7, 0), (op, 0, 1),
+                               (RULE_EMIT, 0, 0)]))
+    out.append(("mixed_algorithms", m, 3))
+    t = CrushMap(tunables=Tunables.profile("jewel"))
+    t.add_bucket(Bucket(id=-1, alg=BUCKET_TREE, type=10,
+                        items=list(range(48)),
+                        weights=[1 << 26] * 47 + [3 << 24]))
+    t.finalize()
+    if max(t.buckets[0].node_weights) < 1 << 31:
+        fail("general placement: the big tree map is under 2^31")
+    for op in (RULE_CHOOSE_FIRSTN, RULE_CHOOSE_INDEP):
+        t.add_rule(Rule(steps=[(RULE_TAKE, -1, 0), (op, 0, 0),
+                               (RULE_EMIT, 0, 0)]))
+    out.append(("tree_node_weights_past_2_31", t, 4))
+    return out
+
+
+def general_placement(device, n_pgs: int = 1 << 20,
+                      n_out: int = 100) -> dict:
+    """The general per-lane mapper on the card: a straw-bucket 10,000-OSD
+    map compiled from crushmap text, a 3-replica pool and a rack-then-host
+    EC 4+2 pool of ``n_pgs`` PGs each, ``n_out`` OSDs out, the remap of
+    both and the replicated pool's map_batch_delta; every lane against
+    the native mapper; then each legacy algorithm alone at 65,536 lanes."""
+    from ceph_tpu_torch.cluster.osdmap import (OSDMap, PGPool, POOL_ERASURE,
+                                               POOL_REPLICATED)
+    from ceph_tpu_torch.native_bridge import NativeMapper
+    from ceph_tpu_torch.placement.compiler import compile_crushmap
+    from ceph_tpu_torch.placement.crush_map import ITEM_NONE, WEIGHT_ONE
+    from ceph_tpu_torch.placement.xla_mapper import XlaMapper
+    from ceph_tpu_torch.common.options import config
+    pc = perf("crush.mapper")
+
+    def stat(key):
+        v = pc.dump().get(key, 0)
+        return v["sum"] if isinstance(v, dict) else v
+
+    t0 = time.perf_counter()
+    cmap = compile_crushmap(straw_cluster_text())
+    t_compile = time.perf_counter() - t0
+    if cmap.max_devices != GP_RACKS * GP_HOSTS * GP_OSDS or \
+            any(b is not None and b.alg != 4 for b in cmap.buckets):
+        fail("general placement: the compiled map is not the straw cluster")
+    om = OSDMap(cmap, device=device)
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name="rep", type=POOL_REPLICATED, size=3,
+                       pg_num=n_pgs, crush_rule=0))
+    om.add_pool(PGPool(id=2, name="ec42", type=POOL_ERASURE, size=6,
+                       pg_num=n_pgs, crush_rule=1))
+    nm = NativeMapper(cmap)
+    f0, u0, g0 = stat("fallback_lanes"), stat("fast_unsupported_rules"), \
+        stat("general_map_s")
+    k0 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches)
+    torch.cuda.reset_peak_memory_stats()
+    times, native_s, ups = {}, 0.0, {}
+    pps = {pid: om.pools[pid].raw_pg_to_pps_batch(np.arange(n_pgs))
+           for pid in (1, 2)}
+
+    def sweep(tag, pid, weights):
+        nonlocal native_s
+        t0 = time.perf_counter()
+        up, _ = om.map_pgs_batch(pid)
+        sync(device)
+        times[tag] = time.perf_counter() - t0
+        size = om.pools[pid].size
+        t0 = time.perf_counter()
+        raw = native_rows(nm, pps[pid], size, weights, ruleno=pid - 1)
+        native_s += time.perf_counter() - t0
+        # the replicated pool's up rows close their holes; the EC rows
+        # keep them in place (positional shards)
+        want = compact(raw, ITEM_NONE) if pid == 1 else raw
+        if not np.array_equal(up, want):
+            bad = int((up != want).any(axis=1).sum())
+            fail(f"general placement: {tag} differs from the native mapper "
+                 f"on {bad} PGs")
+        ups[tag] = up
+        return raw
+
+    w0 = om.osd_weight[:cmap.max_devices].copy()
+    raw_rep0 = sweep("replicated", 1, w0)
+    sweep("ec42", 2, w0)
+    outs = np.random.default_rng(SEED + 1).choice(cmap.max_devices, n_out,
+                                                  replace=False)
+    for o in outs:
+        om.mark_out(int(o))
+    w1 = om.osd_weight[:cmap.max_devices].copy()
+    sweep("replicated_remap", 1, w1)
+    sweep("ec42_remap", 2, w1)
+    t0 = time.perf_counter()
+    delta = om._batched_mapper().map_batch_delta(0, pps[1], 3, w0, w1,
+                                                 raw_rep0)
+    times["replicated_delta"] = time.perf_counter() - t0
+    if not np.array_equal(delta, native_rows(nm, pps[1], 3, w1)):
+        fail("general placement: map_batch_delta differs from the native "
+             "mapper")
+    for tag in ("replicated_remap", "ec42_remap"):
+        if np.isin(ups[tag], outs).any():
+            fail(f"general placement: an out OSD kept a PG ({tag})")
+    peak = torch.cuda.max_memory_allocated()
+    moved = {p: int((ups[p + "_remap"] != ups[p]).any(axis=1).sum())
+             for p in ("replicated", "ec42")}
+
+    # each legacy algorithm alone, against the native mapper
+    legacy = {}
+    xs = np.random.default_rng(SEED + 2).integers(0, 1 << 32, GP_LANES)
+    for name, m, rm in legacy_maps():
+        mapper = XlaMapper(m, device=device)
+        nml = NativeMapper(m)
+        wl = [WEIGHT_ONE] * m.max_devices
+        for i in range(0, m.max_devices, 5):
+            wl[i] = 0
+        for ruleno in range(len(m.rules)):
+            t0 = time.perf_counter()
+            got = mapper.map_batch(ruleno, xs, rm, wl)
+            dt_s = time.perf_counter() - t0
+            if not np.array_equal(got, native_rows(nml, xs, rm, wl,
+                                                   ruleno=ruleno)):
+                fail(f"general placement: {name} rule {ruleno} differs "
+                     "from the native mapper")
+            legacy[f"{name}/rule{ruleno}"] = dt_s
+
+    k1 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches)
+    fallback = stat("fallback_lanes") - f0
+    unsupported = stat("fast_unsupported_rules") - u0
+    general_s = stat("general_map_s") - g0
+    if fallback:
+        fail(f"general placement: {fallback} lanes went to the host")
+    if unsupported < 1 or general_s <= 0:
+        fail("general placement: the general trace did not run "
+             f"(fast_unsupported_rules {unsupported}, general_map_s "
+             f"{general_s})")
+    if k1 != k0:
+        fail("general placement: a kernel launched on the placement path")
+    cap = int(config().get("mapper_max_lanes_per_call"))
+    return {"osds": cmap.max_devices, "racks": GP_RACKS,
+            "hosts": GP_RACKS * GP_HOSTS, "alg": "straw",
+            "compile_text_s": t_compile, "pgs_per_pool": n_pgs,
+            "out_osds": n_out, "sweep_s": times, "lanes_per_sweep": n_pgs,
+            "chunks_per_sweep": -(-n_pgs // cap), "lanes_per_chunk": cap,
+            "general_map_s": general_s,
+            "fast_unsupported_rules": unsupported,
+            "fallback_lanes": fallback, "pgs_moved": moved,
+            "native_lanes_checked": 5 * n_pgs, "native_s": native_s,
+            "native_threads": os.cpu_count(),
+            "max_memory_allocated": peak,
+            "legacy_lanes": GP_LANES, "legacy_map_batch_s": legacy}
+
+
 def counters():
     """(K1 launches, K2 launches, K1 plain runs, K2 plain runs, ec.jax
     encode + decode dispatches, the rebuild sweep's K1 dispatches)."""
@@ -597,7 +848,7 @@ def counters():
 
 def cluster_step(device, layout: str, n_objects: int = 64,
                  obj_bytes: int = 4 << 20) -> dict:
-    """One RS(8,3) pool's cluster step on the card (phase 5).  Returns the
+    """One RS(8,3) pool's cluster step on the card (phase 6).  Returns the
     phase wall times, the recovery stats and the kernel accounting read
     around this pool's phases alone."""
     from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_ERASURE
@@ -1217,7 +1468,14 @@ def main() -> int:
     sweep["gpu"] = card
     emit({"phase": "placement_sweep", **sweep})
 
-    # 5. the cluster step, one pool after the other
+    # 5. general placement: the per-lane mapper (no kernel; the kernels'
+    # counts are read around it inside and must not move)
+    gp = general_placement(device)
+    gp["gpu"] = card
+    emit({"phase": "general_placement", **gp})
+    torch.cuda.empty_cache()
+
+    # 6. the cluster step, one pool after the other
     steps = {}
     for layout in ("bitsliced", "bytes"):
         torch.cuda.reset_peak_memory_stats()
@@ -1230,7 +1488,7 @@ def main() -> int:
             crc32_gf2.plain_runs) != plain0 or gf_pallas.fused_launches:
         fail("a plain version or K3 ran on the cluster paths")
 
-    # 6. the ZeroWire ingest path (its counts are read around it inside)
+    # 7. the ZeroWire ingest path (its counts are read around it inside)
     zw = zerowire_path(device, zw_shards)
     zw_res = zw.pop("res")
     zw["gpu"] = card
@@ -1239,7 +1497,7 @@ def main() -> int:
     del zw_res
     torch.cuda.empty_cache()
 
-    # 7. numbers
+    # 8. numbers
     t1 = time_k1(shapes, card)
     t2 = time_k2(shapes2, card)
     t3 = time_k3(zw_pool, round(zw["counters"]["device_crc_bytes"] / 4096 /

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ceph_tpu_torch, and none of its
-root scripts (chip_smoke.py, kernel_timing.py, k2_variants.py), imports
+root scripts (chip_smoke.py, kernel_timing.py, k2_variants.py,
+placement_profile.py), imports
 JAX or the reference package; its entry points
 default to the card and never fall back to the CPU on their own."""
 import ast
@@ -22,7 +23,7 @@ FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
 def port_files():
     return sorted((REPO / "ceph_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py", REPO / "kernel_timing.py",
-         REPO / "k2_variants.py"]
+         REPO / "k2_variants.py", REPO / "placement_profile.py"]
 
 
 def imported_roots(path):
@@ -50,7 +51,15 @@ def test_port_files_exist():
                  "ceph_tpu_torch/cluster/blockdev.py",
                  "ceph_tpu_torch/cluster/kv.py",
                  "ceph_tpu_torch/cluster/wal_kv.py",
-                 "ceph_tpu_torch/cluster/bluestore.py"):
+                 "ceph_tpu_torch/cluster/bluestore.py",
+                 "ceph_tpu_torch/placement/compiler.py",
+                 "ceph_tpu_torch/placement/treedump.py",
+                 "ceph_tpu_torch/common/backoff.py",
+                 "ceph_tpu_torch/common/log.py",
+                 "ceph_tpu_torch/common/admin.py",
+                 "ceph_tpu_torch/cluster/admin_commands.py",
+                 "ceph_tpu_torch/cluster/striper.py",
+                 "ceph_tpu_torch/cluster/scrub_machine.py"):
         assert want in names
 
 
@@ -82,6 +91,15 @@ def test_default_device_is_cuda_and_never_falls_back():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             instance().factory("jax", {"k": "4", "m": "2",
                                        "layout": "bitsliced"})
+        # the general per-lane mapper (a straw map) never maps on the host
+        from ceph_tpu_torch.placement.compiler import compile_crushmap
+        from ceph_tpu_torch.placement.xla_mapper import XlaMapper
+        straw = compile_crushmap(
+            "device 0 osd.0\ndevice 1 osd.1\ntype 0 osd\ntype 10 root\n"
+            "root r {\n id -1\n alg straw\n hash 0\n"
+            " item osd.0 weight 1.0\n item osd.1 weight 1.0\n}\n")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            XlaMapper(straw, fast=False)
     assert ceph_tpu_torch.resolve_device("cpu").type == "cpu"
 
 

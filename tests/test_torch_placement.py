@@ -236,26 +236,30 @@ def test_map_batch_delta_after_weight_drop():
 
 
 def test_chained_choose_raises_naming_the_later_slice():
+    """A chained rule (choose feeding chooseleaf) is outside the fast
+    subset; it once raised, naming the later slice that would carry it.
+    The general per-lane trace carries it now: it maps, equal to the
+    reference's scalar mapper."""
     cmap, root = build_flat_cluster(n_racks=3, n_hosts=9, osds_per_host=3)
     cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
                               (RULE_CHOOSE_FIRSTN, 2, TYPE_RACK),
                               (RULE_CHOOSELEAF_FIRSTN, 2, TYPE_HOST),
                               (RULE_EMIT, 0, 0)]))
-    mapper = port_xla.XlaMapper(carried(cmap))
-    with pytest.raises(port_xla.UnsupportedMapError, match="later slice"):
-        mapper.map_batch(0, XS[:8], 4, [WEIGHT_ONE] * cmap.max_devices)
+    got = check_port(cmap, 0, 4, [WEIGHT_ONE] * cmap.max_devices, XS[:96])
+    assert (got != ITEM_NONE).all()
 
 
 def test_legacy_bucket_map_raises():
+    """A list bucket is outside the fast subset; it once raised.  The
+    general per-lane trace maps it now, equal to the scalar mapper."""
     cmap = CrushMap()
     cmap.add_bucket(Bucket(id=-1, alg=BUCKET_LIST, type=1,
                            items=[0, 1, 2, 3], weights=[WEIGHT_ONE] * 4))
     cmap.add_rule(Rule(steps=[(RULE_TAKE, -1, 0),
                               (RULE_CHOOSE_FIRSTN, 0, 0), (RULE_EMIT, 0, 0)]))
     cmap.finalize()
-    mapper = port_xla.XlaMapper(carried(cmap))
-    with pytest.raises(port_xla.UnsupportedMapError, match="general"):
-        mapper.map_batch(0, XS[:8], 2, [WEIGHT_ONE] * 4)
+    got = check_port(cmap, 0, 2, [WEIGHT_ONE] * 4, XS[:64])
+    assert (got != ITEM_NONE).all()
 
 
 def test_crush_map_state_round_trip():
@@ -308,35 +312,33 @@ def _golden_weights(spec, name, reweighted):
 
 @pytest.mark.parametrize("map_index", range(10))
 def test_golden_crush_vectors(golden, map_index):
-    """Every supported (rule, result_max, weights) group of one golden
-    map equals the reference C's crush_do_rule; a group outside the fast
-    subset must raise UnsupportedMapError, never map quietly."""
+    """Every (rule, result_max, weights) group of one golden map equals
+    the reference C's crush_do_rule, legacy bucket algorithms and chained
+    rules included.  The one map with the argonaut profile's local-retry
+    tunables must raise UnsupportedMapError in both packages, never map
+    quietly."""
+    from ceph_tpu.placement.xla_mapper import UnsupportedMapError as RefErr
+    from ceph_tpu.placement.xla_mapper import compile_map as ref_compile
     data, reweighted, groups = golden
     spec = data["specs"][map_index]
-    supported = unsupported = 0
-    try:
-        mapper = port_xla.XlaMapper(PortCrushMap.from_spec(spec))
-    except port_xla.UnsupportedMapError:
-        mapper = None           # legacy tunables: no group maps here
+    if spec["tunables"].get("choose_local_tries"):
+        assert spec["name"] == "two_level_argonaut"
+        with pytest.raises(port_xla.UnsupportedMapError):
+            port_xla.XlaMapper(PortCrushMap.from_spec(spec))
+        with pytest.raises(RefErr):
+            ref_compile(CrushMap.from_spec(spec))
+        return
+    mapper = port_xla.XlaMapper(PortCrushMap.from_spec(spec))
+    mapped = 0
     for (mi, rule, rm, wname), cases in sorted(groups.items()):
         if mi != map_index:
             continue
         weights = _golden_weights(spec, wname, reweighted[mi])
         xs = np.asarray([c["x"] for c in cases], dtype=np.int64)
-        try:
-            if mapper is None:
-                raise port_xla.UnsupportedMapError(spec["name"])
-            got = mapper.map_batch(rule, xs, rm, weights)
-        except port_xla.UnsupportedMapError:
-            unsupported += 1
-            continue
-        supported += 1
+        got = mapper.map_batch(rule, xs, rm, weights)
         want = np.full((len(cases), rm), ITEM_NONE, dtype=np.int32)
         for i, c in enumerate(cases):
             want[i, :len(c["result"])] = c["result"]
         assert np.array_equal(got, want), (spec["name"], rule, rm, wname)
-    assert supported + unsupported > 0
-    # the straw2 maps with modern tunables are the fast subset's maps
-    straw2 = all(b["alg"] == 5 for b in spec["buckets"]) and \
-        not spec["tunables"].get("choose_local_tries")
-    assert (supported > 0) == straw2, (spec["name"], supported, unsupported)
+        mapped += 1
+    assert mapped > 0
