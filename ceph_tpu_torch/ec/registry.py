@@ -9,8 +9,10 @@ The port keeps the reference package's seam: plugins register factory
 callables under a name; ``factory(name, profile, device=None)``
 instantiates and init()s a codec on ``device`` (the package default when
 None).  A version string is checked at registration to preserve the
-reference's mismatched-plugin failure mode.  This slice of the port
-registers one builtin, ``jax`` (layout=bitsliced on kernel K1).
+reference's mismatched-plugin failure mode.  The builtins are the
+reference's six: ``jerasure``, ``isa``, ``jax``, ``lrc``, ``shec`` and
+``clay``; a layered codec (lrc, clay) passes its own device on to the
+inner codecs it builds here.
 """
 from __future__ import annotations
 
@@ -91,9 +93,12 @@ class ErasureCodePluginRegistry:
 
     # ----------------------------------------------------------- builtins --
     def _load_builtins(self) -> None:
-        # local import to avoid cycles; each module exposes register(reg)
-        from . import plugin_jax
-        plugin_jax.register(self)
+        # local imports to avoid cycles; each module exposes register(reg)
+        from . import (plugin_clay, plugin_isa, plugin_jax, plugin_jerasure,
+                       plugin_lrc, plugin_shec)
+        for mod in (plugin_jerasure, plugin_isa, plugin_jax, plugin_lrc,
+                    plugin_shec, plugin_clay):
+            mod.register(self)
 
 
 def instance() -> ErasureCodePluginRegistry:

@@ -21,7 +21,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the ZeroWire pool (RS(4,2)), RS(8,3), k + m = 20 with a random
      bit-matrix, a 1-byte, an exact-block and a block + 1 object, a
      513-block RS(4,2) pool one byte off 16-byte alignment, and its crc
-     leg alone (m = 0) at block sizes 1, 64, 512, 4096, 4097 and 65536);
+     leg alone (m = 0) at block sizes 1, 64, 512, 4096, 4097 and 65536;
+     and the erasure-code plugins' shapes: K1 at the liber8tion (w = 8),
+     liberation (w = 7) and blaum_roth (w = 6) encodes and 2-erasure
+     decodes, K2 at LRC k=4 m=2 l=3's global [1, 4, 131072] -> 2 and local
+     [1, 3, 131072] -> 1 layers and CLAY(8,4,11)'s pft [1, 2, 2048] -> 2
+     and mds [1, 8, 2048] -> 4 calls);
   3. the EC data path through ECBackend: an RS(8,3) layout=bitsliced pool,
      1 MiB stripes, 128 objects of 4 MiB put in one ingest batch onto 16
      OSD device caches, 3 OSDs killed, every object read back (degraded
@@ -65,17 +70,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      one frame with a flipped bit rejected; parity held to K2, every
      sub-crc to zlib, every byte read back, and the scan counters to
      "no full block scanned on the host";
-  8. time each kernel beside its bound and its plain version: device time
+  8. the erasure-code plugins through the port's registry on the card:
+     (a) the 21 configs of the non-regression corpus (every jerasure
+     technique, isa, shec, lrc, clay and the jax codec) encoded on the
+     card and held byte for byte to tests/golden/ec_corpus.npz; (b) one
+     ClusterSim pool per plugin on the cluster step's map (stripe_unit
+     128 KiB, 4 MiB objects): jerasure liber8tion k=6 m=2 (K1), lrc k=4
+     m=2 l=3 and clay k=8 m=4 d=11 (K2, through their inner ``jax``
+     codecs), 64 objects each, and jerasure cauchy_good k=6 m=3, isa k=8
+     m=3 and shec k=4 m=3 c=2 (host NumPy, no kernel), 16 objects each:
+     put_many, two OSDs of the first object's up set killed, every object
+     read, both marked out, recover_all (CLAY through its sub-chunk
+     repair), every object read again; every byte compared, the
+     launches counted per step and shape;
+  9. time each kernel beside its bound and its plain version: device time
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
      CUDA events (host work included); K2 also beside its launch floor,
      an empty kernel at K2's grid replayed the same way.
 
-Around each path of phases 3, 6 and 7 the kernels' launch counts are
-set to 0 just before and read just after: K1's must equal the bitsliced
-paths' dispatches, K2's the byte pool's ``ec.jax`` encode + decode
-dispatches, K3's the ZeroWire path's encode launches plus its device crc
-dispatches, and no plain version may run.  The placement phases 4 and 5
+Around each path of phases 3, 6, 7 and each pool of phase 8 the kernels'
+launch counts are set to 0 just before and read just after: K1's must
+equal the bitsliced paths' dispatches and the bitmatrix pool's
+``ec.bitmatrix`` dispatches, K2's the byte pool's and the layered pools'
+``ec.jax`` encode + decode dispatches, K3's the ZeroWire path's encode
+launches plus its device crc dispatches; the host pools launch nothing,
+and no plain version may run.  The placement phases 4 and 5
 run no kernel, and phase 5 fails if a count moves.  Earlier lines print
 the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
 JSON, and the ``{"kernels": [...]}`` line; the last line is
@@ -1340,6 +1360,295 @@ def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
     return out
 
 
+# ------------------------------------------------------ EC plugins --
+#
+# The non-regression corpus of scripts/gen_ec_corpus.py: its payload (an
+# LCG) and its 21 (plugin, technique, k, m) configs, kept here so that the
+# smoke reads no script and no module of the JAX package.
+
+CORPUS_CONFIGS = [
+    ("jax", "reed_sol_van", 4, 2), ("jax", "reed_sol_van", 8, 3),
+    ("jax", "cauchy", 4, 2), ("jax", "cauchy_good", 6, 3),
+    ("jax", "isa_rs", 8, 4),
+    ("jerasure", "reed_sol_van", 4, 2), ("jerasure", "reed_sol_van", 8, 3),
+    ("jerasure", "reed_sol_r6_op", 4, 2),
+    ("jerasure", "cauchy_orig", 4, 2), ("jerasure", "cauchy_good", 6, 3),
+    ("isa", "reed_sol_van", 4, 2), ("isa", "cauchy", 6, 2),
+    ("shec", None, 4, 3), ("lrc", None, 4, 2), ("clay", None, 4, 2),
+    ("jerasure", "liberation", 5, 2), ("jerasure", "liberation", 7, 2),
+    ("jerasure", "blaum_roth", 6, 2), ("jerasure", "liber8tion", 8, 2),
+    ("jax", "bitsliced", 8, 3), ("jax", "bitsliced", 4, 2),
+]
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "ec_corpus.npz")
+
+
+def corpus_payload(n: int = 4096) -> bytes:
+    x = 0x12345678
+    out = bytearray()
+    for _ in range(n):
+        x = (1103515245 * x + 12345) & 0x7FFFFFFF
+        out.append((x >> 16) & 0xFF)
+    return bytes(out)
+
+
+def corpus_profile(plugin, technique, k, m) -> dict:
+    prof = {"k": str(k), "m": str(m)}
+    if technique:
+        prof["technique"] = technique
+    if plugin == "shec":
+        prof["c"] = "2"
+    if plugin == "lrc":
+        prof["l"] = "3"
+        prof.pop("technique", None)
+    if technique == "liberation":
+        prof["w"] = "7"
+    elif technique == "blaum_roth":
+        prof["w"] = "6"
+    elif technique == "liber8tion":
+        prof["w"] = "8"
+    elif technique == "bitsliced":
+        prof["technique"] = "reed_sol_van"
+        prof["layout"] = "bitsliced"
+    return prof
+
+
+def inner_codecs(codec) -> list:
+    """The codecs a layered codec built through the registry."""
+    if hasattr(codec, "layers"):
+        return [lay.codec for lay in codec.layers]
+    if hasattr(codec, "pft"):
+        return [codec.mds, codec.pft]
+    return []
+
+
+def check_devices(codec, device, what: str) -> None:
+    for c in [codec] + inner_codecs(codec):
+        if c.device != device:
+            fail(f"{what}: a codec sits on {c.device}, not {device}")
+
+
+def ec_corpus(device) -> dict:
+    """Every corpus config encoded through the port's registry on the
+    card, every chunk held byte for byte to tests/golden/ec_corpus.npz;
+    a codec with a batched device path (jax, the bitmatrix techniques)
+    also through that path."""
+    corpus = np.load(CORPUS)
+    data = corpus_payload()
+    t0 = time.perf_counter()
+    batched = 0
+    for plugin, technique, k, m in CORPUS_CONFIGS:
+        codec = instance().factory(
+            plugin, corpus_profile(plugin, technique, k, m), device=device)
+        check_devices(codec, device, f"corpus {plugin}")
+        n = codec.get_chunk_count()
+        key = f"{plugin}.{technique or 'default'}.k{k}m{m}"
+        want = [corpus[f"{key}.c{c}"] for c in range(n)]
+        chunks = codec.encode(set(range(n)), data)
+        for c in range(n):
+            if not np.array_equal(chunks[c], want[c]):
+                fail(f"corpus {key}: chunk {c} differs on the card")
+        if hasattr(codec, "encode_chunks_device"):
+            prepared = codec.encode_prepare(data)
+            par = codec.encode_chunks_device(prepared[None])
+            if par.device.type != device.type or not np.array_equal(
+                    par[0].cpu().numpy(), np.stack(want[k:])):
+                fail(f"corpus {key}: the device encode differs")
+            batched += 1
+    return {"configs": len(CORPUS_CONFIGS), "device_encodes": batched,
+            "corpus_s": time.perf_counter() - t0}
+
+
+# (name, profile, kernel the pool runs, objects): BASELINE #4's CLAY,
+# Ceph's LRC documentation example, BASELINE #2's isa baseline, Ceph's
+# SHEC default, and a RAID-6 bitmatrix and a Cauchy jerasure pool; the
+# host pools run no kernel and encode far slower, so they hold 16 objects
+PLUGIN_POOLS = [
+    ("jerasure-liber8tion", {"plugin": "jerasure", "technique": "liber8tion",
+                             "k": "6", "m": "2", "w": "8"}, "k1", 64),
+    ("lrc", {"plugin": "lrc", "k": "4", "m": "2", "l": "3"}, "k2", 64),
+    ("clay", {"plugin": "clay", "k": "8", "m": "4", "d": "11"}, "k2", 64),
+    ("jerasure-cauchy_good", {"plugin": "jerasure",
+                              "technique": "cauchy_good", "k": "6",
+                              "m": "3"}, "host", 16),
+    ("isa", {"plugin": "isa", "k": "8", "m": "3"}, "host", 16),
+    ("shec", {"plugin": "shec", "k": "4", "m": "3", "c": "2"}, "host", 16),
+]
+
+
+def ec_dispatches():
+    """(ec.bitmatrix, ec.jax) encode + decode dispatches so far."""
+    out = []
+    for group in ("ec.bitmatrix", "ec.jax"):
+        d = perf(group).dump()
+        out.append(d.get("encode_dispatches", 0) +
+                   d.get("decode_dispatches", 0))
+    return tuple(out)
+
+
+def plugin_pool(device, name: str, prof: dict, runs: str, n_objects: int,
+                obj_bytes: int = 4 << 20) -> dict:
+    """One erasure-code plugin's pool on the cluster step's map (phase 8):
+    put_many, two OSDs of the first object's up set killed, every object
+    read, both marked out, recover_all, every object read again and held
+    byte for byte to what was written.  K1's and K2's launches (by
+    shape) and the plain versions' runs are read around the pool."""
+    from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_ERASURE
+    from ceph_tpu_torch.cluster.simulator import ClusterSim
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        ITEM_NONE, RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE, Rule)
+    cmap, root = build_flat_cluster(n_hosts=32, osds_per_host=4)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_INDEP, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    om = OSDMap(cmap, device=device)
+    om.mark_all_in_up()
+    size = instance().factory(prof["plugin"], dict(prof),
+                              device=device).get_chunk_count()
+    om.add_pool(PGPool(id=1, name=name, type=POOL_ERASURE, size=size,
+                       pg_num=256, crush_rule=0, erasure_code_profile="p",
+                       stripe_unit=128 << 10))
+    sim = ClusterSim(om, device=device)
+    sim.create_ec_profile("p", dict(prof))
+    codec = sim.codec_for(om.pools[1])
+    check_devices(codec, device, name)
+    if sim._device_staging(codec):
+        fail(f"{name}: the pool took the HBM staging tier")
+    rng = np.random.default_rng(SEED)
+    names = [f"{name}{i:03d}" for i in range(n_objects)]
+    datas = [rng.integers(0, 256, obj_bytes, dtype=np.uint8).tobytes()
+             for _ in names]
+    times, shapes = {}, {}
+    step = ["put_many"]
+    launch_k1, launch_k2 = xor_kernel._launch, gf_pallas._launch
+
+    def seen(kernel, key):
+        h = shapes.setdefault(step[0], {}).setdefault(kernel, {})
+        h[key] = h.get(key, 0) + 1
+
+    def observed_k1(m3, w3, per_batch):
+        seen("k1", ",".join(map(str, w3.shape)) + f"->{m3.shape[1]}")
+        return launch_k1(m3, w3, per_batch)
+
+    def observed_k2(bm, d3, m):
+        seen("k2", ",".join(map(str, d3.shape)) + f"->{m}")
+        return launch_k2(bm, d3, m)
+
+    def timed(label, fn):
+        step[0] = label
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        times[f"{label}_s"] = time.perf_counter() - t0
+        return out
+
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # earlier phases' tensors
+    xor_kernel.launches = 0
+    gf_pallas.launches = 0
+    plain0 = (xor_kernel.plain_runs, gf_pallas.plain_runs,
+              crc32_gf2.plain_runs, gf_pallas.fused_launches)
+    disp0 = ec_dispatches()
+    xor_kernel._launch, gf_pallas._launch = observed_k1, observed_k2
+    try:
+        placed = timed("put_many", lambda: sim.put_many(1, names, datas))
+        if any(len(p) != size for p in placed.values()):
+            fail(f"{name}: a shard did not land")
+        pool = om.pools[1]
+        up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
+        victims = [o for o in up if o != ITEM_NONE][:2]
+        for v in victims:
+            sim.kill_osd(v)
+        gets = timed("degraded_get", lambda: [sim.get(1, nm)
+                                               for nm in names])
+        if gets != datas:
+            fail(f"{name}: a degraded read differs")
+        for v in victims:
+            sim.out_osd(v)
+        rec = timed("recover_all", lambda: sim.recover_all(1))
+        gets = timed("get_after_recovery", lambda: [sim.get(1, nm)
+                                                     for nm in names])
+        if gets != datas:
+            fail(f"{name}: a read after recovery differs")
+    finally:
+        xor_kernel._launch, gf_pallas._launch = launch_k1, launch_k2
+        sim.shutdown()
+    plain = tuple(b - a for a, b in zip(plain0, (
+        xor_kernel.plain_runs, gf_pallas.plain_runs, crc32_gf2.plain_runs,
+        gf_pallas.fused_launches)))
+    bitmatrix, jax = (b - a for a, b in zip(disp0, ec_dispatches()))
+    k1, k2 = xor_kernel.launches, gf_pallas.launches
+    if any(plain):
+        fail(f"{name}: a plain version or K3 ran on the path: {plain}")
+    want = {"k1": (bitmatrix, 0), "k2": (0, jax), "host": (0, 0)}[runs]
+    if (k1, k2) != want or (runs != "host" and k1 + k2 == 0) or \
+            (runs == "host" and bitmatrix + jax):
+        fail(f"{name}: K1 launched {k1}, K2 {k2}; the pool made "
+             f"{bitmatrix} bitmatrix and {jax} ec.jax dispatches")
+    if rec["shards_rebuilt"] <= 0:
+        fail(f"{name}: recovery rebuilt nothing")
+    if prof["plugin"] == "clay" and not rec.get("ranged_repairs"):
+        fail(f"{name}: no object recovered through the sub-chunk repair")
+    return {"pool": name, "profile": prof, "runs": runs,
+            "objects": n_objects, "object_bytes": obj_bytes,
+            "chunks": size, "chunk_size": sim.objects[(1, names[0])]
+            .chunk_size, "victims": victims, "recover": rec,
+            "bitmatrix_dispatches": bitmatrix, "ec_jax_dispatches": jax,
+            "k1_launches": k1, "k2_launches": k2,
+            "launch_shapes": shapes, **times,
+            "steps_s": sum(times.values()), "memory_allocated_before": held,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def plugin_k1_shapes(device, gen):
+    """K1 at the bitmatrix techniques' shapes: liber8tion k=6 w=8 at the
+    pool's 128 KiB chunks ([6, 48, 4096] words, 6 stripes of a 4 MiB
+    object), its 2-erasure decode, and liberation w=7 and blaum_roth w=6,
+    whose plane lengths are no multiple of 8 words."""
+    out = {}
+    for technique, k, w in (("liber8tion", 6, 8), ("liberation", 5, 7),
+                            ("blaum_roth", 6, 6)):
+        codec = instance().factory(
+            "jerasure", {"technique": technique, "k": str(k), "m": "2",
+                         "w": str(w)}, device=device)
+        W = codec.get_chunk_size(k * (128 << 10)) // w // 4
+        R, _ = codec.decode_bitmatrix(
+            [c for c in range(k + 2) if c not in (0, k)], [0, k])
+        for tag, bm in (("encode", codec.bitmatrix), ("decode", R)):
+            out[f"{technique}_w{w}_{tag}"] = (
+                torch.as_tensor(gf2.bitmatrix_masks(bm), device=device),
+                random_words((6, k * w, W), gen, device))
+    return out
+
+
+def plugin_k2_shapes(device, gen):
+    """K2 at LRC's and CLAY's per-call shapes: LRC k=4 m=2 l=3's global
+    layer [1, 4, L] -> 2 rows and local layer [1, 3, L] -> 1 row at the
+    pool's 128 KiB chunks; CLAY(8,4,11)'s pft [1, 2, sc] -> 2 rows and mds
+    [1, 8, sc] -> 4 rows at its 2 KiB sub-chunks."""
+    def data(shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device=device, generator=gen)
+
+    lrc = instance().factory("lrc", {"k": "4", "m": "2", "l": "3"},
+                             device=device)
+    clay = instance().factory("clay", {"k": "8", "m": "4", "d": "11"},
+                              device=device)
+    L = 128 << 10
+    sc = L // clay.get_sub_chunk_count()
+    pft, _ = clay.pft.decode_matrix([2, 3], [0, 1])
+    mds, _ = clay.mds.decode_matrix(list(range(4, 12)), [0, 1, 2, 3])
+    return {"lrc_global": (gf.gf8_bitmatrix(lrc.layers[0].codec.parity),
+                           data((1, 4, L))),
+            "lrc_local": (gf.gf8_bitmatrix(lrc.layers[1].codec.parity),
+                          data((1, 3, L))),
+            "clay_pft": (gf.gf8_bitmatrix(pft), data((1, 2, sc))),
+            "clay_mds": (gf.gf8_bitmatrix(mds), data((1, 8, sc)))}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1350,12 +1659,13 @@ def gpu_line() -> str:
 
 def time_k2(shapes, card: str) -> dict:
     """K2's device time at the batched encode, put, decode and ragged
-    shapes beside its bound, its plain version and its launch floor (an
+    shapes and at LRC's global layer and CLAY's pft and mds calls, beside its bound, its plain version and its launch floor (an
     empty kernel at K2's grid, by graph replay like K2; None where the
     package has no floor entry point)."""
     out = {}
     floor = getattr(gf_pallas, "bitplane_floor", None)
-    for name in ("encode", "put", "decode", "ragged"):
+    for name in ("encode", "put", "decode", "ragged", "lrc_global",
+                 "clay_pft", "clay_mds"):
         bitmat, data = shapes[name]
         B, k, L = data.shape
         m = bitmat.shape[0] // 8
@@ -1389,9 +1699,11 @@ def time_k2(shapes, card: str) -> dict:
 
 
 def time_k1(shapes, card: str) -> dict:
-    """K1's device time at the encode, decode and rebuild shapes."""
+    """K1's device time at the encode, decode and rebuild shapes and at
+    the liber8tion (w = 8) and liberation (w = 7) encodes."""
     timings = {}
-    for name in ("encode", "decode", "rebuild"):
+    for name in ("encode", "decode", "rebuild", "liber8tion_w8_encode",
+                 "liberation_w7_encode"):
         masks, words = shapes[name]
         B, C, W = words.shape
         R = masks.shape[-2]
@@ -1433,8 +1745,10 @@ def main() -> int:
         "jax", {"k": str(K), "m": str(M), "technique": "reed_sol_van",
                 "layout": "bitsliced"})
     shapes = k1_shapes(device, codec, gen)
+    shapes.update(plugin_k1_shapes(device, gen))
     errs = kernel_checks(device, shapes)
     shapes2 = k2_shapes(device, gen)
+    shapes2.update(plugin_k2_shapes(device, gen))
     errs2 = k2_checks(device, shapes2)
     zw_shards = zerowire_shards()
     zw_pool = ragged_fused.pack(zw_shards).pool
@@ -1497,7 +1811,25 @@ def main() -> int:
     del zw_res
     torch.cuda.empty_cache()
 
-    # 8. numbers
+    # 8. the erasure-code plugins: the corpus, then one pool per plugin
+    # (each pool's counts are read around it inside)
+    xor_kernel.launches = 0
+    gf_pallas.launches = 0
+    corpus = ec_corpus(device)
+    corpus.update(k1_launches=xor_kernel.launches,
+                  k2_launches=gf_pallas.launches, gpu=card)
+    emit({"phase": "ec_corpus", **corpus})
+    plugin_k1 = corpus["k1_launches"]
+    plugin_k2 = corpus["k2_launches"]
+    for name, prof, runs, n_objects in PLUGIN_POOLS:
+        pp = plugin_pool(device, name, prof, runs, n_objects)
+        pp["gpu"] = card
+        emit({"phase": "ec_plugin_pool", **pp})
+        plugin_k1 += pp["k1_launches"]
+        plugin_k2 += pp["k2_launches"]
+        torch.cuda.empty_cache()
+
+    # 9. numbers
     t1 = time_k1(shapes, card)
     t2 = time_k2(shapes2, card)
     t3 = time_k3(zw_pool, round(zw["counters"]["device_crc_bytes"] / 4096 /
@@ -1507,7 +1839,8 @@ def main() -> int:
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
          "replaces": "ceph_tpu/ops/xor_kernel.py:76",
-         "launches": k1_slice + steps["bitsliced"]["k1_launches"],
+         "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
+         plugin_k1,
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -1515,7 +1848,7 @@ def main() -> int:
         {"name": "gf_bitplane", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_bitplane.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:34",
-         "launches": steps["bytes"]["k2_launches"],
+         "launches": steps["bytes"]["k2_launches"] + plugin_k2,
          "max_abs_err": max(errs2.values()),
          "ms": enc2["ms"], "plain_ms": enc2["plain_ms"],
          "bound_ms": enc2["bound_ms"], "bound_by": enc2["bound_by"],

@@ -608,3 +608,97 @@ def test_receive_verify_auto_runs_k3_on_the_card(card):
     assert z1.get("scan_verify_bytes", 0) == z0.get("scan_verify_bytes", 0)
     want = crcutil.Csums.scan(data, site="test")
     assert (cs.subs, cs.combined) == (want.subs, want.combined)
+
+
+# ------------------------------------------ the erasure-code plugins --
+
+@pytest.mark.parametrize("technique,k,w", [
+    ("liberation", 5, 7), ("blaum_roth", 6, 6), ("liber8tion", 6, 8)])
+def test_bitmatrix_codec_on_card_runs_k1_and_equals_cpu(card, technique,
+                                                         k, w):
+    """The jerasure bitmatrix techniques' batch paths launch K1 once per
+    dispatch on the card and equal the plain version on the CPU, at plane
+    lengths that are not multiples of 8 words (w = 6, 7)."""
+    prof = {"technique": technique, "k": str(k), "m": "2", "w": str(w)}
+    gpu = instance().factory("jerasure", prof, device=card)
+    cpu = instance().factory("jerasure", prof, device="cpu")
+    assert gpu.device.type == "cuda"
+    chunk = gpu.get_chunk_size(k * 131072)
+    data = rand_bytes((4, k, chunk), 60)
+    runs, launches = xor_kernel.plain_runs, xor_kernel.launches
+    par = gpu.encode_chunks_batch(data)
+    full = np.concatenate([data, par], axis=1)
+    n = k + 2
+    sets = [[0], [k], [1, k + 1], [0, k - 1]]
+    for erased in sets:
+        avail = [c for c in range(n) if c not in erased]
+        assert np.array_equal(
+            gpu.decode_chunks_batch(avail, full[:, avail], erased),
+            full[:, erased])
+    assert xor_kernel.plain_runs == runs
+    assert xor_kernel.launches == launches + 1 + len(sets)
+    assert np.array_equal(par, cpu.encode_chunks_batch(data))
+    assert np.array_equal(par[0], cpu.encode_chunks(data[0]))
+
+
+def test_clay_repair_on_card_runs_k2_and_equals_cpu(card):
+    """CLAY(8,4,11): encode and the single-loss repair from d helpers on
+    the card (each PFT solve and per-plane MDS decode one K2 launch)
+    equal the CPU's, and no plain version runs."""
+    prof = {"k": "8", "m": "4", "d": "11"}
+    gpu = instance().factory("clay", prof, device=card)
+    cpu = instance().factory("clay", prof, device="cpu")
+    assert gpu.mds.device == gpu.pft.device == gpu.device
+    chunk = gpu.get_chunk_size(8 * 131072)
+    sub = gpu.get_sub_chunk_count()
+    sc = chunk // sub
+    data = rand_bytes((8, chunk), 61)
+    runs, launches = gf_pallas.plain_runs, gf_pallas.launches
+    par = gpu.encode_chunks(data)
+    full = np.concatenate([data, par])
+    lost = 3
+    plan = gpu.minimum_to_decode({lost}, set(range(12)) - {lost})
+    helpers = {h: np.concatenate([full[h].reshape(sub, sc)[o:o + c]
+                                  for o, c in rg]).reshape(-1)
+               for h, rg in plan.items()}
+    got = gpu.repair(lost, helpers, chunk)
+    assert gf_pallas.plain_runs == runs
+    assert gf_pallas.launches > launches
+    assert np.array_equal(got, full[lost])
+    assert np.array_equal(par, cpu.encode_chunks(data))
+    assert np.array_equal(got, cpu.repair(lost, helpers, chunk))
+
+
+@pytest.mark.parametrize("plugin,prof", [
+    ("lrc", {"k": "4", "m": "2", "l": "3"}),
+    ("clay", {"k": "4", "m": "2", "d": "5"})])
+def test_layered_inner_codecs_follow_the_outer_device(card, plugin, prof):
+    """A layered codec builds its inner codecs on its own device, whatever
+    the package default; under ``ec_kernel=xla`` a layered codec on the
+    card raises through its inner codec."""
+    import ceph_tpu_torch
+    from ceph_tpu_torch.common.options import config
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+
+    def inner(codec):
+        return [lay.codec for lay in codec.layers] if plugin == "lrc" \
+            else [codec.mds, codec.pft]
+
+    prev = ceph_tpu_torch.default_device()
+    try:
+        ceph_tpu_torch.set_default_device("cuda")
+        cpu = instance().factory(plugin, dict(prof), device="cpu")
+        ceph_tpu_torch.set_default_device("cpu")
+        gpu = instance().factory(plugin, dict(prof), device=card)
+    finally:
+        ceph_tpu_torch.set_default_device(prev)
+    assert {c.device.type for c in inner(cpu)} == {"cpu"}
+    assert {c.device.type for c in inner(gpu)} == {"cuda"}
+    data = rand_bytes((4, gpu.get_chunk_size(4 * 8192)), 62)
+    assert np.array_equal(gpu.encode_chunks(data), cpu.encode_chunks(data))
+    config().set("ec_kernel", "xla")
+    try:
+        with pytest.raises(ErasureCodeError, match="never runs"):
+            gpu.encode_chunks(data)
+    finally:
+        config().clear("ec_kernel")

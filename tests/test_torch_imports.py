@@ -59,7 +59,15 @@ def test_port_files_exist():
                  "ceph_tpu_torch/common/admin.py",
                  "ceph_tpu_torch/cluster/admin_commands.py",
                  "ceph_tpu_torch/cluster/striper.py",
-                 "ceph_tpu_torch/cluster/scrub_machine.py"):
+                 "ceph_tpu_torch/cluster/scrub_machine.py",
+                 "ceph_tpu_torch/ec/bitmatrix_raid6.py",
+                 "ceph_tpu_torch/ec/bitmatrix_codec.py",
+                 "ceph_tpu_torch/ec/plugin_jerasure.py",
+                 "ceph_tpu_torch/ec/plugin_isa.py",
+                 "ceph_tpu_torch/ec/plugin_shec.py",
+                 "ceph_tpu_torch/ec/plugin_lrc.py",
+                 "ceph_tpu_torch/ec/plugin_clay.py",
+                 "ceph_tpu_torch/tools/ec_bench.py"):
         assert want in names
 
 
@@ -88,9 +96,9 @@ def test_default_device_is_cuda_and_never_falls_back():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ceph_tpu_torch.resolve_device()
         from ceph_tpu_torch.ec import instance
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            instance().factory("jax", {"k": "4", "m": "2",
-                                       "layout": "bitsliced"})
+        for plugin in instance().names():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                instance().factory(plugin, {"k": "4", "m": "2"})
         # the general per-lane mapper (a straw map) never maps on the host
         from ceph_tpu_torch.placement.compiler import compile_crushmap
         from ceph_tpu_torch.placement.xla_mapper import XlaMapper

@@ -8,7 +8,11 @@ as ``__graft_entry__.py:140-196`` builds it, with seed 0, for the default
 bitsliced layout (HBM-staged, K1) and for ``layout=bytes`` (host tier,
 K2).  Everything the step returns must be equal between the packages.
 A few cases of tests/test_simulator.py and tests/test_device_staging.py
-follow: mixed sizes in two stripe classes, a kill beyond m.
+follow: mixed sizes in two stripe classes, a kill beyond m.  Then one pool
+per erasure-code plugin (jerasure's bitmatrix and matrix techniques, isa,
+shec, lrc and clay) on the same map runs put, degraded get, kill/out and
+recover_all in both packages; shard bytes, reads and recovery stats must
+be equal.
 """
 import numpy as np
 import pytest
@@ -201,3 +205,126 @@ def test_tiering_and_object_classes_name_the_later_slice():
             sim.exec_cls(1, "x", "hello", "say_hello")
     finally:
         sim.shutdown()
+
+
+# one pool per plugin, every profile six chunks wide so that the module's
+# reference mapper (compiled for 6 results) serves them all
+PLUGIN_POOLS = {
+    "jerasure-liber8tion": {"plugin": "jerasure", "technique": "liber8tion",
+                            "k": "4", "m": "2", "w": "8"},
+    "jerasure-cauchy_good": {"plugin": "jerasure",
+                             "technique": "cauchy_good", "k": "4",
+                             "m": "2"},
+    "isa": {"plugin": "isa", "k": "4", "m": "2"},
+    "shec": {"plugin": "shec", "k": "3", "m": "3", "c": "2"},
+    "lrc": {"plugin": "lrc", "k": "2", "m": "2", "l": "2"},
+    "clay": {"plugin": "clay", "k": "4", "m": "2", "d": "5"},
+}
+
+
+def plugin_pool_step(sim, seed=5, n_objects=N_OBJECTS):
+    """put_many, two OSDs of the first object's up set killed, every
+    object read, both marked out, recover_all, every object read again;
+    returns what both packages must agree on."""
+    rng = np.random.default_rng(seed)
+    names = [f"p{i}" for i in range(n_objects)]
+    datas = [rng.integers(0, 256, int(sz), dtype=np.uint8).tobytes()
+             for sz in rng.integers(200, 4000, len(names))]
+    placed = sim.put_many(1, names, datas)
+    pool = sim.osdmap.pools[1]
+
+    def shards():
+        out = {}
+        for nm in names:
+            pg = sim.object_pg(pool, nm)
+            up = sim.pg_up(pool, pg)
+            for shard in range(len(up)):
+                f = sim._read_shard(1, pg, nm, shard, up)
+                out[(nm, shard)] = None if f is None else bytes(f)
+        return out
+
+    stored = shards()
+    up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
+    victims = [o for o in up if o >= 0][:2]
+    for v in victims:
+        sim.kill_osd(v)
+    gets = [sim.get(1, nm) for nm in names]
+    for v in victims:
+        sim.out_osd(v)
+    rec = sim.recover_all(1)
+    gets2 = [sim.get(1, nm) for nm in names]
+    return {"placed": {nm: sorted(p) for nm, p in placed.items()},
+            "datas": datas, "stored": stored, "gets": gets,
+            "gets2": gets2, "rec": rec, "after": shards(),
+            "victims": victims}
+
+
+@pytest.mark.parametrize("name", list(PLUGIN_POOLS))
+def test_plugin_pool_equals_reference(ref_crush, name):
+    from ceph_tpu.cluster.osdmap import OSDMap as RefOSDMap
+    from ceph_tpu.cluster.osdmap import PGPool as RefPGPool
+    from ceph_tpu.cluster.simulator import ClusterSim as RefClusterSim
+    from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_ERASURE
+    from ceph_tpu_torch.cluster.simulator import ClusterSim
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE, Rule)
+    prof = PLUGIN_POOLS[name]
+    pool_args = dict(id=1, name=name, type=POOL_ERASURE, size=6, pg_num=16,
+                     crush_rule=0, erasure_code_profile="p", stripe_unit=64)
+    cmap, root = build_flat_cluster(n_hosts=8, osds_per_host=1)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_INDEP, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    om = OSDMap(cmap, device="cpu")
+    om.mark_all_in_up()
+    om.add_pool(PGPool(**pool_args))
+    sim = ClusterSim(om, device="cpu")
+    ref_cmap, mapper = ref_crush
+    rom = RefOSDMap(ref_cmap)
+    rom._mapper, rom._mapper_map = mapper, ref_cmap
+    rom.mark_all_in_up()
+    rom.add_pool(RefPGPool(**pool_args))
+    ref = RefClusterSim(rom)
+    try:
+        sim.create_ec_profile("p", dict(prof))
+        ref.create_ec_profile("p", dict(prof))
+        codec = sim.codec_for(om.pools[1])
+        assert codec.get_chunk_count() == 6
+        assert codec.device == torch.device("cpu")
+        assert not sim._device_staging(codec)      # the host tier
+        before = kernel_trips()
+        got = plugin_pool_step(sim)
+        trips = [b - a for a, b in zip(before, kernel_trips())]
+        want = plugin_pool_step(ref)
+    finally:
+        sim.shutdown()
+        ref.shutdown()
+    assert got["gets"] == got["datas"] and got["gets2"] == got["datas"]
+    for key in ("datas", "placed", "victims", "stored", "gets", "gets2",
+                "rec", "after"):
+        assert got[key] == want[key], key
+    assert got["rec"]["shards_rebuilt"] > 0
+    if prof["plugin"] == "clay":
+        assert got["rec"].get("ranged_repairs", 0) > 0
+    # (K1 trips, ec.bitmatrix dispatches, K2 trips, ec.jax dispatches):
+    # on the CPU each kernel wrapper takes its plain version, once per
+    # dispatch of the codec that runs it; the host codecs run neither
+    k1, bitmatrix, k2, jax = trips
+    assert (k1, k2) == (bitmatrix, jax)
+    if prof.get("technique") == "liber8tion":
+        assert k1 > 0 and k2 == 0
+    elif prof["plugin"] in ("lrc", "clay"):
+        assert k2 > 0 and k1 == 0
+    else:
+        assert k1 == k2 == 0
+
+
+def kernel_trips():
+    def dispatches(group):
+        d = perf(group).dump()
+        return d.get("encode_dispatches", 0) + d.get("decode_dispatches", 0)
+
+    return (xor_kernel.plain_runs, dispatches("ec.bitmatrix"),
+            gf_pallas.plain_runs, dispatches("ec.jax"))
