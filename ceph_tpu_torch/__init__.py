@@ -13,8 +13,13 @@ matrix_codec}.py``, ``placement/{crush_map,lntable,builder,
 scalar_mapper}.py``, ``msg/{encoding,queue,scheduler,dispatcher,
 shm_ring}.py``, ``msg/wire.py`` but for its receive verify,
 ``cluster/{pg_heat,objectstore,pglog,ec_rmw,osd_service,blockdev,kv,
-wal_kv,bluestore}.py`` and ``native_bridge.py``, which builds
-``native/*.cpp`` into ``build/native/``).
+wal_kv,bluestore,filestore,crashdev,daemon_pglog,class_handler,monitor,
+mon_quorum,objecter,async_objecter}.py``, ``mgr/{module_host,
+metrics_history,cluster_stats}.py``, ``client/{rados,striper,
+remote_ioctx}.py`` and ``native_bridge.py``, which builds
+``native/*.cpp`` into ``build/native/``).  The process cluster
+(``tools/vstart.py``, ``cluster/daemon.py``) runs its daemons on the CPU
+and its EC primary, ``client/remote.py``, on the card.
 
 Device policy: entry points run on the card.  The package default device
 is ``cuda``; a caller asks for the CPU explicitly, with

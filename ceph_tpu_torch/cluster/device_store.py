@@ -94,8 +94,16 @@ class ShardRef:
                         self.idx].reshape(-1)
 
     def __array__(self, dtype=None, copy=None):
-        a = self.materialize().cpu().numpy()
+        a = to_host(self.materialize())
         return a.astype(dtype) if dtype is not None else a
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array: one explicit device->host copy, its bytes
+    counted at perf("hbm") ``readback_bytes`` when they leave a card."""
+    if t.device.type != "cpu":
+        _perf("hbm").inc("readback_bytes", t.numel() * t.element_size())
+    return t.cpu().numpy()
 
 
 def as_ref(arr: torch.Tensor) -> ShardRef:
@@ -111,7 +119,7 @@ def materialize_bulk(refs) -> List[np.ndarray]:
     host = {}
     for r in refs:
         if id(r.buf) not in host:
-            host[id(r.buf)] = r.buf.cpu().numpy()
+            host[id(r.buf)] = to_host(r.buf)
     out = []
     for r in refs:
         b = host[id(r.buf)]

@@ -168,7 +168,7 @@ class ECBackend:
         (staged/WAL flush mode — device refs are authoritative until
         flushed).  ``d_host`` lets a caller that already holds the
         payload host-side skip the data readback."""
-        from .device_store import ShardRef
+        from .device_store import ShardRef, to_host
         S, U, W = geom.S, geom.U, geom.W
         N = len(names)
         d = self.to_words(payload, N * S, U)
@@ -176,8 +176,8 @@ class ECBackend:
         p_host = None
         if durable:
             if d_host is None:
-                d_host = d.cpu().numpy()
-            p_host = par.cpu().numpy()
+                d_host = to_host(d)
+            p_host = to_host(par)
         writes: List[SubWrite] = []
         for i, name in enumerate(names):
             attrs = geom.attrs()

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import warnings
 import zlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -179,27 +179,45 @@ def csums_for(buf, block: int = crcutil.CSUM_BLOCK) -> crcutil.Csums:
     return csums_many([buf], block=block)[0]
 
 
-def csums_many(bufs: Sequence, block: int = crcutil.CSUM_BLOCK
-               ) -> List[crcutil.Csums]:
+def csums_many(bufs: Sequence, block: int = crcutil.CSUM_BLOCK,
+               tensors: Optional[Sequence] = None) -> List[crcutil.Csums]:
     """Batched Csums for many buffers: every full block across every
     buffer rides ONE device dispatch; tails (len % block) are host
-    scanned (counted at ``device_tail``, negligible)."""
+    scanned (counted at ``device_tail``, negligible).  ``tensors``, where
+    given, holds the same bytes as device tensors (any dtype, contiguous,
+    or None for a buffer held only on the host): their full blocks are
+    crc'd where they lie, with no upload."""
     views = [crcutil.as_u8(np.ascontiguousarray(buf)
                            if isinstance(buf, np.ndarray) else buf)
              for buf in bufs]
-    stacked: List[np.ndarray] = []
+    tensors = list(tensors) if tensors is not None else [None] * len(views)
+    if len(tensors) != len(views):
+        raise ValueError(f"{len(tensors)} tensors for {len(views)} buffers")
+    stacked: List = []
     spans: List[Tuple[int, int]] = []     # (first_row, n_rows) per buf
     row = 0
-    for mv in views:
+    for mv, t in zip(views, tensors):
         n_full = len(mv) // block
+        if t is not None and t.numel() * t.element_size() != len(mv):
+            raise ValueError(f"a tensor of {t.numel() * t.element_size()}"
+                             f" B for a buffer of {len(mv)} B")
         if n_full:
-            stacked.append(np.frombuffer(
-                mv[:n_full * block], dtype=np.uint8).reshape(
-                    n_full, block))
+            stacked.append(
+                t.reshape(-1).view(torch.uint8)[:n_full * block]
+                .reshape(n_full, block) if t is not None else
+                np.frombuffer(mv[:n_full * block], dtype=np.uint8)
+                .reshape(n_full, block))
         spans.append((row, n_full))
         row += n_full
-    full_crcs = (crc32_blocks(np.concatenate(stacked, axis=0), block)
-                 if stacked else np.zeros((0,), dtype=np.uint32))
+    if not stacked:
+        full_crcs = np.zeros((0,), dtype=np.uint32)
+    elif all(isinstance(x, np.ndarray) for x in stacked):
+        full_crcs = crc32_blocks(np.concatenate(stacked, axis=0), block)
+    else:
+        dev = next(x.device for x in stacked if isinstance(x, torch.Tensor))
+        full_crcs = crc32_blocks(torch.cat(
+            [x if isinstance(x, torch.Tensor) else
+             _host_tensor(x).to(dev) for x in stacked]), block)
     out: List[crcutil.Csums] = []
     for mv, (first, n_full) in zip(views, spans):
         subs = [int(c) for c in full_crcs[first:first + n_full]]

@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      registers, shared memory and spills;
   2. hold each kernel bit-identical to its plain PyTorch version on the
      card at the main path's shapes (K1: RS(8,3) encode, a 3-erasure
-     decode, a per-stripe-signature rebuild, a ragged word count; K2: the
+     decode, a per-stripe-signature rebuild, a ragged word count, and
+     phase 10's encodes [512 | 16 | 8, 64, 32768] and 2-erasure decode
+     [8, 64, 32768] -> 16 at 1 MiB chunks; K2: the
      per-object put [4, 8, 131072], the batched encode [128, 8, 131072],
      a 3-erasure decode, a ragged L = 131071, a random 20-row bit-matrix
      over 32 data rows, a data pointer one byte off alignment and
@@ -21,7 +23,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the ZeroWire pool (RS(4,2)), RS(8,3), k + m = 20 with a random
      bit-matrix, a 1-byte, an exact-block and a block + 1 object, a
      513-block RS(4,2) pool one byte off 16-byte alignment, and its crc
-     leg alone (m = 0) at block sizes 1, 64, 512, 4096, 4097 and 65536;
+     leg alone (m = 0) at block sizes 1, 64, 512, 4096, 4097 and 65536
+     and at phase 10's flush batch (22,528 blocks), durable-put batch
+     (45,056) and 1 MiB reply frame (256);
      and the erasure-code plugins' shapes: K1 at the liber8tion (w = 8),
      liberation (w = 7) and blaum_roth (w = 6) encodes and 2-erasure
      decodes, K2 at LRC k=4 m=2 l=3's global [1, 4, 131072] -> 2 and local
@@ -87,15 +91,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
      CUDA events (host work included); K2 also beside its launch floor,
-     an empty kernel at K2's grid replayed the same way.
+     an empty kernel at K2's grid replayed the same way;
+ 10. the process cluster (bench.py's ``bench_process_cluster``):
+     ``tools/vstart`` starts one mon and 12 OSD daemon processes, each
+     asked for the CPU (``--device cpu``), with an RS(8,3) bitsliced pool
+     (pg_num 32, 1 MiB stripe unit, BlueStore); a ``RemoteCluster`` in
+     this process, its codec on the card, runs a staged
+     ``put_many_from_device`` of 16 x 256 MiB objects twice (a 4 GiB
+     payload made on the card; 5.5 GiB of shards staged in HBM, held to
+     the CPU plain encode), a ``flush_staged`` of one 64 MiB object
+     (readback, K3 crc-leg csums, socket commit; the daemons' shards
+     held to the CPU plain encode), a durable ``put_many`` of 16 x 4 MiB,
+     ``kill9`` of two shard holders with their staged entries evicted,
+     ``get_many_to_device`` and ``get`` of every durable object,
+     ``out`` and ``recover_ec_pool``, and every object read again, every
+     byte compared; no daemon may hold a CUDA context (none listed by
+     ``nvidia-smi --query-compute-apps``, none with a ``/dev/nvidia*``
+     descriptor open), and no host crc scan in this process may cover a
+     full 4 KiB block.
 
-Around each path of phases 3, 6, 7 and each pool of phase 8 the kernels'
-launch counts are set to 0 just before and read just after: K1's must
-equal the bitsliced paths' dispatches and the bitmatrix pool's
-``ec.bitmatrix`` dispatches, K2's the byte pool's and the layered pools'
-``ec.jax`` encode + decode dispatches, K3's the ZeroWire path's encode
-launches plus its device crc dispatches; the host pools launch nothing,
-and no plain version may run.  The placement phases 4 and 5
+Around each path of phases 3, 6, 7, each pool of phase 8 and each step
+of phase 10 the kernels' launch counts are set to 0 just before and read
+just after: K1's must equal the bitsliced paths' dispatches and the
+bitmatrix pool's ``ec.bitmatrix`` dispatches, K2's the byte pool's and
+the layered pools' ``ec.jax`` encode + decode dispatches, K3's the
+ZeroWire path's encode launches plus its device crc dispatches (phase 10:
+the device crc dispatches alone); the host pools launch nothing, and no
+plain version may run.  The placement phases 4 and 5
 run no kernel, and phase 5 fails if a count moves.  Earlier lines print
 the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
 JSON, and the ``{"kernels": [...]}`` line; the last line is
@@ -399,8 +421,9 @@ def k2_checks(device, shapes) -> dict:
 def k1_shapes(device, codec, gen):
     """The main path's K1 shapes at full size: encode [512, 64, 4096]
     (shared masks), a 3-erasure decode (one signature), a rebuild
-    [512, 88, 4096] with its own full-width masks per stripe, and a
-    ragged W = 4095."""
+    [512, 88, 4096] with its own full-width masks per stripe, a ragged
+    W = 4095, and the process cluster's encodes and 2-erasure decode at
+    1 MiB chunks."""
     n = K + M
     enc_masks = torch.as_tensor(
         gf2.bitmatrix_masks(gf.gf8_bitmatrix(codec.parity)), device=device)
@@ -416,7 +439,24 @@ def k1_shapes(device, codec, gen):
         avail = [c for c in range(n) if c not in lost]
         tabs.append(rebuild_masks(codec, lost, avail, n, M))
     rb_masks = torch.as_tensor(np.stack(tabs), device=device)
-    return {
+    # the process cluster's (phase 10) shapes: 1 MiB chunks are 8 planes
+    # of 32,768 words; the staged put encodes 16 x 32 stripes in one
+    # call, the durable put 16 one-stripe objects, the flush object 8
+    # stripes, and a degraded read decodes a 2-erasure signature
+    R2, _ = codec.decode_matrix([0, 2, 3, 4, 5, 6, 7, 8], [1, 9])
+    dec2 = torch.as_tensor(gf2.bitmatrix_masks(gf.gf8_bitmatrix(R2)),
+                           device=device)
+    pcW = PC_SU // 32
+    pc = {"pc_put": (enc_masks, random_words(
+              (PC_OBJECTS * pc_stripes(PC_OBJ_BYTES), 8 * K, pcW), gen,
+              device)),
+          "pc_durable_put": (enc_masks, random_words(
+              (PC_OBJECTS, 8 * K, pcW), gen, device)),
+          "pc_flush_put": (enc_masks, random_words(
+              (pc_stripes(PC_FLUSH_BYTES), 8 * K, pcW), gen, device)),
+          "pc_decode": (dec2, random_words(
+              (pc_stripes(PC_FLUSH_BYTES), 8 * K, pcW), gen, device))}
+    return {**pc,
         "encode": (enc_masks, random_words((512, 8 * K, 4096), gen,
                                            device)),
         "decode": (dec_masks, random_words((32, 8 * K, 4096), gen,
@@ -1052,6 +1092,16 @@ def k3_shapes(device, gen, main_pool: np.ndarray):
     for T in (1, 64, 512, 4096, 4097, 65536):
         shapes[f"crc_leg_{T}"] = (np.zeros((0, 8), dtype=np.uint8),
                                   data((64 if T > 4097 else 256, 1, T)))
+    # the process cluster's (phase 10) crc batches: the flush of one
+    # 64 MiB object's 11 shards, the durable put's 16 x 11 one-chunk
+    # shards, and one 1 MiB shard's reply frame
+    blocks = PC_SU // 4096
+    for name, G in (("pc_flush", (K + M) * pc_stripes(PC_FLUSH_BYTES) *
+                     blocks),
+                    ("pc_durable_put", PC_OBJECTS * (K + M) * blocks),
+                    ("pc_reply", blocks)):
+        shapes[f"crc_leg_{name}"] = (np.zeros((0, 8), dtype=np.uint8),
+                                     data((G, 1, 4096)))
     return shapes
 
 
@@ -1321,8 +1371,9 @@ def zerowire_checks(device, shards, res) -> None:
 def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
             card: str) -> dict:
     """K3's device time at the full ZeroWire pool and its crc leg at a
-    2 MiB frame (512 blocks) and at the ZeroWire path's mean verified
-    frame, beside their bounds and plain versions."""
+    2 MiB frame (512 blocks), at the ZeroWire path's mean verified frame
+    and at the process cluster's flush batch, beside their bounds and
+    plain versions."""
     out = {}
     rs42 = gf.gf8_bitmatrix(gf.isa_rs_parity(ZW_K, ZW_M))
     none = np.zeros((0, 8), dtype=np.uint8)
@@ -1331,10 +1382,16 @@ def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
                           device=device,
                           generator=torch.Generator(device=device)
                           .manual_seed(SEED))
+    pc_flush_blocks = (K + M) * pc_stripes(PC_FLUSH_BYTES) * PC_SU // 4096
+    flush = torch.randint(0, 256, (pc_flush_blocks, 1, 4096),
+                          dtype=torch.uint8, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(SEED + 10))
     for name, bitmat, data, iters in (
             ("full_pool", rs42, pool, 10),
             ("crc_leg_2MiB", none, frame, 50),
-            ("crc_leg_mean_frame", none, frame[:mean_frame_blocks], 50)):
+            ("crc_leg_mean_frame", none, frame[:mean_frame_blocks], 50),
+            ("crc_leg_pc_flush", none, flush, 10)):
         G, k, T = data.shape
         m = bitmat.shape[0] // 8
         n0 = gf_pallas.fused_launches
@@ -1649,6 +1706,439 @@ def plugin_k2_shapes(device, gen):
             "clay_mds": (gf.gf8_bitmatrix(mds), data((1, 8, sc)))}
 
 
+# ------------------------------------------------ the process cluster --
+
+# bench.py's bench_process_cluster: RS(8,3) bitsliced, 12 OSD daemons,
+# pg_num 32, 1 MiB stripe unit, a staged put of 16 x 256 MiB objects per
+# round, a 64 MiB flush, 16 x 4 MiB durable objects
+PC_OSDS = 12
+PC_PG_NUM = 32
+PC_SU = 1 << 20
+PC_OBJECTS = 16
+PC_OBJ_BYTES = 256 << 20
+PC_ROUNDS = 2
+PC_FLUSH_BYTES = 64 << 20
+PC_DURABLE_BYTES = 4 << 20
+PC_PROFILE = {"plugin": "jax", "k": str(K), "m": str(M),
+              "layout": "bitsliced"}
+PC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "build", "pc")
+
+
+def pc_stripes(nbytes: int) -> int:
+    """Stripes of k chunks of PC_SU bytes an object of ``nbytes`` takes."""
+    return max(1, -(-nbytes // (K * PC_SU)))
+
+
+def compute_app_pids() -> list:
+    """Pids holding a CUDA context, as nvidia-smi lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+
+
+def opens_nvidia_devices(pid: int) -> bool:
+    """Whether process ``pid`` holds a file descriptor on a
+    ``/dev/nvidia*`` device, as a process with a CUDA context does (one
+    that only imported torch holds none)."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith(
+                    "/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def pc_expected_shards(words: torch.Tensor) -> list:
+    """Shard bytes of one object ([S, k, W] int32 words) as the CPU plain
+    encode gives them: data shard c is words[:, c], parity from a codec
+    on the CPU (K1's plain version), each shard its S chunks in order."""
+    cpu = instance().factory("jax", dict(PC_PROFILE), device="cpu")
+    host = words.cpu()
+    par = cpu.encode_words_device(host)
+    return [host[:, c].contiguous().numpy().tobytes() for c in range(K)] + \
+        [par[:, j].contiguous().numpy().tobytes() for j in range(M)]
+
+
+def pc_words(data: bytes) -> torch.Tensor:
+    """A durable object's bytes as its stored [S, k, W] words on the host
+    (zero-padded to whole stripes)."""
+    S = pc_stripes(len(data))
+    buf = np.zeros(S * K * PC_SU, dtype=np.uint8)
+    buf[:len(data)] = np.frombuffer(data, dtype=np.uint8)
+    return torch.from_numpy(buf.view(np.int32).reshape(S, K, PC_SU // 4))
+
+
+def process_cluster(device, card: str) -> dict:
+    """Phase 10: the process cluster.  vstart starts one mon and 12 OSD
+    daemon processes asked for the CPU; a RemoteCluster here, its codec
+    on the card, drives bench.py's bench_process_cluster through the
+    port: a staged put (2 rounds), a 64 MiB flush, a durable put, two
+    OSDs killed and every durable object read degraded, both marked out,
+    recover_ec_pool, every object read again.  Each step is timed with a
+    synchronize before the clock stops, and its K1 and K3 launches (by
+    shape), device crc dispatches, readback bytes and host crc scans are
+    read around it."""
+    from ceph_tpu_torch.client.remote import RemoteCluster
+    from ceph_tpu_torch.common import crcutil
+    from ceph_tpu_torch.msg import wire
+    from ceph_tpu_torch.tools.vstart import Vstart, build_cluster_dir
+    shutil.rmtree(PC_DIR, ignore_errors=True)
+    build_cluster_dir(
+        PC_DIR, n_osds=PC_OSDS, osds_per_host=1, fsync=False,
+        pools=[{"id": 1, "name": "ec", "type": 3, "size": K + M,
+                "pg_num": PC_PG_NUM, "crush_rule": 1,
+                "erasure_code_profile": "p", "stripe_unit": PC_SU}])
+    W = PC_SU // 4
+    S = pc_stripes(PC_OBJ_BYTES)
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    names = [f"p{i:02d}" for i in range(PC_OBJECTS)]
+    rng = np.random.default_rng(SEED + 10)
+    dnames = [f"d{i:02d}" for i in range(PC_OBJECTS)]
+    ddatas = [rng.integers(0, 256, PC_DURABLE_BYTES, dtype=np.uint8)
+              .tobytes() for _ in dnames]
+    fS = pc_stripes(PC_FLUSH_BYTES)
+    times, steps, shapes, scans = {}, {}, {}, {}
+    # payload bytes the client's host crc'd: Csums.scan passes of a full
+    # block or more, and bulk frame segments sent without folded csums
+    host_payload = {"scans": [], "unfolded_sends": []}
+    step = [None]
+    launch_k1, launch_k3 = xor_kernel._launch, gf_pallas._launch_fused
+    note_scan, csums_scan = crcutil.note_scan, crcutil.Csums.scan
+    scan_descriptor = crcutil.Csums.__dict__["scan"]
+    frame_parts = wire._frame_parts
+
+    def seen(kernel, key):
+        h = shapes.setdefault(step[0] or "checks", {}).setdefault(kernel, {})
+        h[key] = h.get(key, 0) + 1
+
+    def observed_k1(m3, w3, per_batch):
+        seen("k1", ",".join(map(str, w3.shape)) + f"->{m3.shape[1]}")
+        return launch_k1(m3, w3, per_batch)
+
+    def observed_k3(bm, pool):
+        seen("k3", ",".join(map(str, pool.shape)) + f"->{bm.shape[0] // 8}")
+        return launch_k3(bm, pool)
+
+    def observed_scan(nbytes, site):
+        if step[0] is not None and nbytes > 0:
+            c = scans.setdefault(site, {"scans": 0, "bytes": 0, "max": 0})
+            c["scans"] += 1
+            c["bytes"] += int(nbytes)
+            c["max"] = max(c["max"], int(nbytes))
+        return note_scan(nbytes, site)
+
+    def observed_csums_scan(cls, buf, block=crcutil.CSUM_BLOCK,
+                            site="send"):
+        n = len(crcutil.as_u8(buf))
+        if n >= 4096:
+            host_payload["scans"].append((step[0], site, n))
+        return csums_scan(buf, block=block, site=site)
+
+    def observed_frame_parts(env_type, env_id, shard, parts, session_key,
+                             mode, data_csums=None):
+        if env_type in (wire.MSG_REQ_SG, wire.MSG_REPLY_SG) and parts:
+            n = len(parts[-1])
+            if n >= 4096 and (data_csums is None or
+                              data_csums.length != n):
+                host_payload["unfolded_sends"].append((step[0], n))
+        return frame_parts(env_type, env_id, shard, parts, session_key,
+                           mode, data_csums=data_csums)
+
+    def counts():
+        ec = perf("ec.jax").dump()
+        zero = perf("wire.zero").dump()
+        return {"k1": xor_kernel.launches, "k2": gf_pallas.launches,
+                "k3": gf_pallas.fused_launches,
+                "ec_dispatches": ec.get("encode_dispatches", 0) +
+                ec.get("decode_dispatches", 0),
+                "device_crc_dispatches": zero.get("device_crc_dispatches", 0),
+                "device_crc_bytes": zero.get("device_crc_bytes", 0),
+                "readback_bytes": perf("hbm").dump().get("readback_bytes", 0),
+                "plain": xor_kernel.plain_runs + gf_pallas.plain_runs +
+                crc32_gf2.plain_runs}
+
+    tries = {}
+
+    def timed(label, fn, full=None):
+        """``fn()`` timed, its counts read around it.  A write (``full``
+        given) runs again after a map refresh until ``full(result)``:
+        under load the mon can mark a live daemon down for a heartbeat,
+        and a write placed then misses that shard (the ack retry of
+        tests/test_process_cluster.py).  A read runs once."""
+        sync(device)
+        c0 = counts()
+        step[0] = label
+        t0 = time.perf_counter()
+        for n in range(1, 13):
+            out = fn()
+            if full is None or full(out):
+                break
+            time.sleep(0.5)
+            rc.refresh_map()
+        else:
+            fail(f"process cluster {label}: not every shard acked: {out}")
+        tries[label] = n
+        sync(device)
+        times[f"{label}_s"] = time.perf_counter() - t0
+        step[0] = None
+        d = {k: v - c0[k] for k, v in counts().items()}
+        steps[label] = d
+        if d["plain"]:
+            fail(f"process cluster {label}: a plain version ran")
+        if d["k1"] != d["ec_dispatches"] or d["k2"] or \
+                d["k3"] != d["device_crc_dispatches"]:
+            fail(f"process cluster {label}: K1 launched {d['k1']} times "
+                 f"for {d['ec_dispatches']} codec dispatches, K3 {d['k3']} "
+                 f"for {d['device_crc_dispatches']} crc dispatches, "
+                 f"K2 {d['k2']}")
+        return out
+
+    def placed(acked):
+        """Every shard of every object has a target."""
+        return all(len(t) == K + M for t in acked.values())
+
+    def daemon_shards(name):
+        io = rc.ec_backend(1).io
+        pg = rc._pg_for(rc.osdmap.pools[1], name)
+        return [io.get_shard_bytes(pg, s, name) for s in range(K + M)]
+
+    zero0 = perf("wire.zero").dump()
+    v = Vstart(PC_DIR)
+    t0 = time.perf_counter()
+    v.start(PC_OSDS, hb_interval=0.5)
+    times["daemons_start_s"] = time.perf_counter() - t0
+    daemon_pids = {n: p.pid for n, p in v.procs.items() if n != "mon"}
+    xor_kernel._launch, gf_pallas._launch_fused = observed_k1, observed_k3
+    crcutil.note_scan = observed_scan
+    crcutil.Csums.scan = classmethod(observed_csums_scan)
+    wire._frame_parts = observed_frame_parts
+    try:
+        rc = RemoteCluster(PC_DIR, ec_profiles={"p": dict(PC_PROFILE)})
+        for _ in range(240):
+            if all(rc.mon_call({"cmd": "get_map"})["osd_up"][:PC_OSDS]):
+                break
+            time.sleep(0.25)
+        else:
+            fail("process cluster: not every OSD came up in the map")
+        rc.refresh_map()
+        codec = rc.codec_for(rc.osdmap.pools[1])
+        if codec.device.type != "cuda" or not rc.ec_backend(1) \
+                .words_supported():
+            fail("process cluster: the client's codec is not bitsliced "
+                 "on the card")
+        torch.cuda.reset_peak_memory_stats()
+        payload = random_words((PC_OBJECTS * S, K, W), gen, device)
+        xor_kernel.launches = 0
+        gf_pallas.launches = 0
+        gf_pallas.fused_launches = 0
+
+        # 1. staged put, two rounds
+        for r in range(PC_ROUNDS):
+            acked = timed(f"staged_put_{r + 1}",
+                          lambda: rc.put_many_from_device(
+                              1, names, payload, durable=False), placed)
+            if sorted(acked) != names:
+                fail("process cluster: a staged object was not placed")
+        staged_bytes = rc.dev.stats()["bytes"]
+        want = PC_OBJECTS * (K + M) * S * PC_SU
+        if staged_bytes != want:
+            fail(f"process cluster: {staged_bytes} B staged, wanted {want}")
+        apps = compute_app_pids()
+        held = sorted(n for n, pid in daemon_pids.items() if pid in apps)
+        opened = sorted(n for n, pid in daemon_pids.items()
+                        if opens_nvidia_devices(pid))
+        if not opens_nvidia_devices(os.getpid()):
+            fail("process cluster: the device probe sees no card in the "
+                 "smoke's own process")
+        if held or opened:
+            fail(f"process cluster: a daemon holds a CUDA context: "
+                 f"listed by nvidia-smi {held}, /dev/nvidia* open {opened}")
+        pool = rc.osdmap.pools[1]
+        p0 = payload[:S]
+        want0 = pc_expected_shards(p0)
+        for sh in range(K + M):
+            key = (1, rc._pg_for(pool, names[0]), names[0], sh)
+            ref = rc.dev.dirty_get(key)
+            if ref is None or \
+                    ref.materialize().cpu().numpy().tobytes() != want0[sh]:
+                fail(f"process cluster: staged shard {sh} of {names[0]} "
+                     f"differs from the CPU plain encode")
+        staged_peak = torch.cuda.max_memory_allocated()
+        rc.dev.clear()          # only the flush object's shards stay dirty
+
+        # 2. flush: one 64 MiB object staged, then read back, csummed on
+        # the card and committed to its daemons
+        timed("flush_stage", lambda: rc.put_many_from_device(
+            1, ["fl0"], payload[:fS], durable=False), placed)
+        flushed = []
+        timed("flush", lambda: flushed.append(rc.flush_staged(1)),
+              lambda _r: not any(True for _ in rc.dev.dirty_items()))
+        if sum(flushed) != K + M:
+            fail(f"process cluster: flushed {sum(flushed)} shards")
+        rb, want_rb = steps["flush"]["readback_bytes"], (K + M) * fS * PC_SU
+        # a flush tried again reads the buffers of what stayed dirty again
+        if rb < want_rb or (tries["flush"] == 1 and rb != want_rb):
+            fail(f"process cluster: the flush read back {rb} B")
+        if daemon_shards("fl0") != pc_expected_shards(payload[:fS]):
+            fail("process cluster: fl0's shards on the daemons differ "
+                 "from the CPU plain encode")
+
+        # 3. durable put
+        acked = timed("durable_put", lambda: rc.put_many(1, dnames, ddatas),
+                      lambda r: all(a == K + M for a in r.values()))
+        if len(acked) != len(dnames):
+            fail(f"process cluster: durable put acks {acked}")
+        if daemon_shards(dnames[0]) != pc_expected_shards(
+                pc_words(ddatas[0])):
+            fail(f"process cluster: {dnames[0]}'s shards on the daemons "
+                 f"differ from the CPU plain encode")
+
+        # 4. two shard holders killed, their staged entries evicted
+        up = rc._up(pool, rc._pg_for(pool, dnames[0]))
+        victims = [o for o in up if o >= 0][:2]
+        for o in victims:
+            v.kill9(f"osd.{o}")
+        for key in list(rc.dev._entries):
+            upk = rc._up(pool, key[1])
+            if key[3] < len(upk) and upk[key[3]] in victims:
+                rc.dev.evict(key)
+        allnames = dnames + ["fl0"]
+        wants = [pc_words(d).to(device) for d in ddatas] + [payload[:fS]]
+        outs = timed("degraded_get_many_to_device",
+                     lambda: rc.get_many_to_device(1, allnames))
+        for nm, got, w in zip(allnames, outs, wants):
+            if not torch.equal(got, w):
+                fail(f"process cluster: degraded device read of {nm} "
+                     f"differs")
+        del outs
+        fl_bytes = payload[:fS].cpu().numpy().tobytes()
+        gets = timed("degraded_get", lambda: [rc.get(1, nm)
+                                              for nm in allnames])
+        if gets != ddatas + [fl_bytes]:
+            fail("process cluster: a degraded read differs")
+
+        # 5. out, recovery, every object read again
+        for o in victims:
+            rc.mon_call({"cmd": "mark_out", "osd": o})
+        rc.refresh_map()
+        rec = {}
+        for attempt in range(5):
+            st = timed(f"recover_ec_pool_{attempt + 1}",
+                       lambda: rc.recover_ec_pool(1))
+            for kk, val in st.items():
+                rec[kk] = rec.get(kk, 0) + val
+            if not st.get("deferred_pgs"):
+                break
+        else:
+            fail(f"process cluster: recovery kept deferring PGs: {rec}")
+        if rec.get("shards_rebuilt", 0) <= 0 or rec.get("unrecoverable"):
+            fail(f"process cluster: recovery {rec}")
+        rc.dev.clear()
+        gets = timed("get_after_recovery", lambda: [rc.get(1, nm)
+                                                    for nm in allnames])
+        if gets != ddatas + [fl_bytes]:
+            fail("process cluster: a read after recovery differs")
+        for nm, w in ((dnames[0], pc_words(ddatas[0])),
+                      ("fl0", payload[:fS])):
+            want_sh = pc_expected_shards(w)
+            got_sh = daemon_shards(nm)
+            if any(g is not None and g != x for g, x in zip(got_sh, want_sh)):
+                fail(f"process cluster: {nm}'s shards after recovery "
+                     f"differ from the CPU plain encode")
+        zero = {k: v - zero0.get(k, 0)
+                for k, v in perf("wire.zero").dump().items()}
+        peak = torch.cuda.max_memory_allocated()
+        # every launch since the counts were set to 0, the steps' and
+        # the smoke's own daemon_shards reads (their reply verifies)
+        launched = {"k1": xor_kernel.launches,
+                    "k3": gf_pallas.fused_launches}
+        rc.close()
+    finally:
+        xor_kernel._launch, gf_pallas._launch_fused = launch_k1, launch_k3
+        crcutil.note_scan = note_scan
+        crcutil.Csums.scan = scan_descriptor
+        wire._frame_parts = frame_parts
+        v.stop()
+        shutil.rmtree(PC_DIR, ignore_errors=True)
+    if host_payload["scans"] or host_payload["unfolded_sends"]:
+        fail(f"process cluster: the client crc'd payload blocks on the "
+             f"host: {host_payload['scans'][:8]} scans, "
+             f"{host_payload['unfolded_sends'][:8]} unfolded sends")
+    total = {k: sum(d[k] for d in steps.values())
+             for k in ("k1", "k3", "device_crc_bytes", "readback_bytes")}
+    if launched["k1"] != total["k1"]:
+        fail(f"process cluster: K1 launched {launched['k1']} times, "
+             f"{total['k1']} of them in the steps")
+    return {"osds": PC_OSDS, "pg_num": PC_PG_NUM, "k": K, "m": M,
+            "stripe_unit": PC_SU, "staged_objects": PC_OBJECTS,
+            "staged_object_bytes": PC_OBJ_BYTES, "rounds": PC_ROUNDS,
+            "flush_bytes": PC_FLUSH_BYTES,
+            "durable_objects": len(dnames),
+            "durable_object_bytes": PC_DURABLE_BYTES,
+            "staged_bytes": staged_bytes, "staged_peak_bytes": staged_peak,
+            "max_memory_allocated": peak, "victims": victims,
+            "recover": rec, "steps": steps, "tries": tries,
+            "launch_shapes": shapes,
+            "client_host_scans": scans, "wire_zero": zero,
+            "compute_app_pids": apps, "own_pid": os.getpid(),
+            "own_pid_listed": os.getpid() in apps,
+            "daemon_pids": daemon_pids, "k1_launches": launched["k1"],
+            "k3_launches": launched["k3"],
+            "k3_launches_in_checks": launched["k3"] - total["k3"],
+            "device_crc_bytes": total["device_crc_bytes"],
+            "readback_bytes": total["readback_bytes"], **times,
+            "gpu": card}
+
+
+def pc_csum_timing(device, card: str) -> dict:
+    """The durable put's checksum step three ways, at its shape (16
+    objects x 11 shards of 1 MiB): a host scan per sub-write (the
+    reference's fan-out), K3's crc leg over the host bytes uploaded again,
+    and K3's crc leg over the shards' copies on the card (the port's
+    fan-out).  Wall milliseconds, median of 5, a synchronize before each
+    clock stops; the three must give the same Csums."""
+    from ceph_tpu_torch.common import crcutil
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    n = PC_OBJECTS * (K + M)
+    shards = torch.randint(0, 256, (n, PC_SU), dtype=torch.uint8,
+                           device=device, generator=gen)
+    hosts = [h.numpy() for h in shards.cpu()]
+    tensors = list(shards)
+
+    def host_scan():
+        return [crcutil.Csums.scan(h, site="client") for h in hosts]
+
+    def upload():
+        return crc32_gf2.csums_many(hosts)
+
+    def on_card():
+        return crc32_gf2.csums_many(hosts, tensors=tensors)
+
+    out = {"shards": n, "shard_bytes": PC_SU, "gpu": card}
+    want = None
+    for name, fn in (("host_scan", host_scan), ("device_upload", upload),
+                     ("device_from_card", on_card)):
+        ms = []
+        for _ in range(5):
+            sync(device)
+            t0 = time.perf_counter()
+            got = fn()
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = [(c.subs, c.length) for c in got]
+        if want is None:
+            want = got
+        elif got != want:
+            fail(f"durable put csums: {name} differs from the host scan")
+        out[f"{name}_ms"] = sorted(ms)[2]
+    return out
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1699,19 +2189,22 @@ def time_k2(shapes, card: str) -> dict:
 
 
 def time_k1(shapes, card: str) -> dict:
-    """K1's device time at the encode, decode and rebuild shapes and at
-    the liber8tion (w = 8) and liberation (w = 7) encodes."""
+    """K1's device time at the encode, decode and rebuild shapes, at the
+    liber8tion (w = 8) and liberation (w = 7) encodes, and at the process
+    cluster's staged put, durable put and 2-erasure decode."""
     timings = {}
-    for name in ("encode", "decode", "rebuild", "liber8tion_w8_encode",
-                 "liberation_w7_encode"):
+    for name, iters in (("encode", 50), ("decode", 50), ("rebuild", 50),
+                        ("liber8tion_w8_encode", 50),
+                        ("liberation_w7_encode", 50), ("pc_put", 4),
+                        ("pc_durable_put", 20), ("pc_decode", 20)):
         masks, words = shapes[name]
         B, C, W = words.shape
         R = masks.shape[-2]
         Bm = B if masks.dim() == 3 else 1
         ms = graph_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
-                      iters=50)
+                      iters=iters)
         call_ms = cuda_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
-                          iters=50)
+                          iters=iters)
         m3 = masks if masks.dim() == 3 else masks[None]
         plain_ms = cuda_ms(lambda: xor_kernel._combine_torch(m3, words),
                            iters=3, warmup=1)
@@ -1835,12 +2328,20 @@ def main() -> int:
     t3 = time_k3(zw_pool, round(zw["counters"]["device_crc_bytes"] / 4096 /
                                 zw["device_crc_dispatches"]), device, card)
     enc1, enc2, full3 = t1["encode"], t2["encode"], t3["full_pool"]
+    torch.cuda.empty_cache()
+
+    # 10. the process cluster: daemons on the CPU, the client on the card
+    # (its counts are read around each step inside)
+    pc = process_cluster(device, card)
+    emit({"phase": "process_cluster", **pc})
+    emit({"phase": "pc_csum_timing", **pc_csum_timing(device, card)})
+    torch.cuda.empty_cache()
     emit({"kernels": [
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
          "replaces": "ceph_tpu/ops/xor_kernel.py:76",
          "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
-         plugin_k1,
+         plugin_k1 + pc["k1_launches"],
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -1856,7 +2357,7 @@ def main() -> int:
         {"name": "ragged_fused", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/ragged_fused.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:83",
-         "launches": zw["k3_launches"],
+         "launches": zw["k3_launches"] + pc["k3_launches"],
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],

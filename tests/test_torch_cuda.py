@@ -11,6 +11,7 @@ The file imports no JAX: its NumPy oracle is ceph_tpu/ops/gf2.py, which
 is NumPy-only, and zlib for crc32.  GF(2) arithmetic and crc32: every
 comparison is exact.
 """
+import time
 import zlib
 
 import numpy as np
@@ -702,3 +703,148 @@ def test_layered_inner_codecs_follow_the_outer_device(card, plugin, prof):
             gpu.encode_chunks(data)
     finally:
         config().clear("ec_kernel")
+
+
+# ------------------------------------------------- the process cluster --
+
+PC_K, PC_M, PC_SU = 4, 2, 1 << 16
+
+
+@pytest.fixture(scope="module")
+def card_cluster(tmp_path_factory):
+    """The port's vstart cluster (6 OSD daemons asked for the CPU) with
+    an RS(4,2) bitsliced pool, driven by a RemoteCluster on the card:
+    put_many, a staged put_many_from_device and flush_staged, two shard
+    holders killed, get_many_to_device and get, out, recover_ec_pool,
+    every object read again.  Records, per step, K1's and K3's launches,
+    the codec's dispatches and the wire.zero device crc dispatches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (K1 and K3 have no CPU mode)")
+    import ceph_tpu_torch
+    from ceph_tpu_torch.client.remote import RemoteCluster
+    from ceph_tpu_torch.common.perf_counters import perf
+    from ceph_tpu_torch.tools.vstart import Vstart, build_cluster_dir
+    prev = ceph_tpu_torch.default_device()
+    ceph_tpu_torch.set_default_device("cuda")
+    d = str(tmp_path_factory.mktemp("pc") / "c")
+    build_cluster_dir(d, n_osds=6, osds_per_host=1, fsync=False, pools=[
+        {"id": 1, "name": "ec", "type": 3, "size": PC_K + PC_M,
+         "pg_num": 8, "crush_rule": 1, "erasure_code_profile": "p",
+         "stripe_unit": PC_SU}])
+    v = Vstart(d)
+    v.start(6, hb_interval=0.25)
+    rec = {"steps": {}, "reads": {}, "tries": {}}
+
+    def counts():
+        ec = perf("ec.jax").dump()
+        return (xor_kernel.launches, gf_pallas.fused_launches,
+                ec.get("encode_dispatches", 0) +
+                ec.get("decode_dispatches", 0),
+                perf("wire.zero").dump().get("device_crc_dispatches", 0))
+
+    def step(name, fn, full=None):
+        """``fn()`` with its counts.  A write (``full`` given) runs again
+        after a map refresh until ``full(result)``: a loaded host can
+        make the mon mark a live daemon down for a heartbeat, and a
+        write placed then misses that shard (the ack retry of
+        tests/test_process_cluster.py).  Reads run once."""
+        c0 = counts()
+        for tries in range(1, 13):
+            out = fn()
+            if full is None or full(out):
+                break
+            time.sleep(0.5)
+            rc.refresh_map()
+        else:
+            raise AssertionError(f"{name}: not every shard acked: {out}")
+        torch.cuda.synchronize()
+        rec["steps"][name] = [b - a for a, b in zip(c0, counts())]
+        rec["tries"][name] = tries
+        return out
+
+    try:
+        rc = RemoteCluster(d, ec_profiles={"p": {
+            "plugin": "jax", "k": str(PC_K), "m": str(PC_M),
+            "layout": "bitsliced"}})
+        rec["device"] = rc.ec_backend(1).codec.device.type
+        rng = np.random.default_rng(71)
+        names = [f"o{i}" for i in range(6)]
+        datas = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                 for n in (1, 5000, 1 << 16, 300000, 1 << 18, 77777)]
+        full = PC_K + PC_M
+        rec["acks"] = step("put_many", lambda: rc.put_many(1, names, datas),
+                           lambda r: all(a == full for a in r.values()))
+        words = torch.as_tensor(rand_words((2 * 3, PC_K, PC_SU // 4), 72),
+                                device="cuda")
+        step("staged_put", lambda: rc.put_many_from_device(
+            1, ["s0", "s1"], words, durable=False),
+            lambda r: all(len(t) == full for t in r.values()))
+        flushed = []
+        step("flush", lambda: flushed.append(rc.flush_staged(1)),
+             lambda _r: not any(True for _ in rc.dev.dirty_items()))
+        rec["flushed"] = sum(flushed)
+        rec["dirty_after_flush"] = len(list(rc.dev.dirty_items()))
+        pool = rc.osdmap.pools[1]
+        victims = [o for o in rc._up(pool, rc._pg_for(pool, "s0"))
+                   if o >= 0][:2]
+        for o in victims:
+            v.kill9(f"osd.{o}")
+        rc.dev.clear()
+        outs = step("degraded_get_many_to_device",
+                    lambda: rc.get_many_to_device(1, ["s0", "s1"]))
+        rec["reads"]["to_device"] = [
+            o.device.type == "cuda" and torch.equal(o, words[3 * i:3 * i + 3])
+            for i, o in enumerate(outs)]
+        gets = step("degraded_get", lambda: [rc.get(1, n) for n in names])
+        rec["reads"]["degraded"] = gets == datas
+        for o in victims:
+            rc.mon_call({"cmd": "mark_out", "osd": o})
+        rc.refresh_map()
+        rec["recovery"] = step("recover", lambda: rc.recover_ec_pool(1))
+        rc.dev.clear()
+        gets = step("get_after_recovery",
+                    lambda: [rc.get(1, n) for n in names + ["s0", "s1"]])
+        rec["reads"]["after_recovery"] = gets == datas + [
+            words[:3].cpu().numpy().tobytes(),
+            words[3:].cpu().numpy().tobytes()]
+        rc.close()
+        yield rec
+    finally:
+        v.stop()
+        ceph_tpu_torch.set_default_device(prev)
+
+
+def test_process_cluster_client_on_card_reads_bit_identical(card_cluster):
+    assert card_cluster["device"] == "cuda"
+    assert all(a == PC_K + PC_M for a in card_cluster["acks"].values())
+    assert card_cluster["flushed"] == 2 * (PC_K + PC_M)
+    assert card_cluster["dirty_after_flush"] == 0
+    assert all(card_cluster["reads"]["to_device"])
+    assert card_cluster["reads"]["degraded"]
+    assert card_cluster["reads"]["after_recovery"]
+    assert card_cluster["recovery"]["shards_rebuilt"] > 0
+
+
+def test_process_cluster_k3_launches_equal_the_device_crc_dispatches(
+        card_cluster):
+    """Every checksum the client computes on the card (the flush's, the
+    durable fan-out's, each verified reply frame's) is one K3 crc-leg
+    launch, counted as one wire.zero device crc dispatch."""
+    total = 0
+    for name, (_k1, k3, _ec, crc) in card_cluster["steps"].items():
+        assert k3 == crc, name
+        total += k3
+    assert card_cluster["steps"]["flush"][1] >= 1 and total > 0
+
+
+def test_process_cluster_k1_launches_per_step(card_cluster):
+    """K1 launches once per codec dispatch in every step, as phase 10
+    of chip_smoke.py counts them: one encode per put batch, one decode
+    per erasure-signature group."""
+    steps = card_cluster["steps"]
+    for name, (k1, _k3, ec, _crc) in steps.items():
+        assert k1 == ec, name
+    assert steps["put_many"][0] >= 1
+    assert steps["staged_put"][0] == card_cluster["tries"]["staged_put"]
+    assert steps["flush"][0] == 0
+    assert steps["degraded_get_many_to_device"][0] >= 1

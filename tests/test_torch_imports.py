@@ -67,7 +67,28 @@ def test_port_files_exist():
                  "ceph_tpu_torch/ec/plugin_shec.py",
                  "ceph_tpu_torch/ec/plugin_lrc.py",
                  "ceph_tpu_torch/ec/plugin_clay.py",
-                 "ceph_tpu_torch/tools/ec_bench.py"):
+                 "ceph_tpu_torch/tools/ec_bench.py",
+                 "ceph_tpu_torch/cluster/filestore.py",
+                 "ceph_tpu_torch/cluster/crashdev.py",
+                 "ceph_tpu_torch/cluster/daemon_pglog.py",
+                 "ceph_tpu_torch/cluster/class_handler.py",
+                 "ceph_tpu_torch/mgr/__init__.py",
+                 "ceph_tpu_torch/mgr/module_host.py",
+                 "ceph_tpu_torch/mgr/metrics_history.py",
+                 "ceph_tpu_torch/mgr/cluster_stats.py",
+                 "ceph_tpu_torch/cluster/monitor.py",
+                 "ceph_tpu_torch/cluster/mon_quorum.py",
+                 "ceph_tpu_torch/cluster/objecter.py",
+                 "ceph_tpu_torch/parallel/__init__.py",
+                 "ceph_tpu_torch/parallel/multihost.py",
+                 "ceph_tpu_torch/cluster/async_objecter.py",
+                 "ceph_tpu_torch/cluster/daemon.py",
+                 "ceph_tpu_torch/tools/vstart.py",
+                 "ceph_tpu_torch/client/__init__.py",
+                 "ceph_tpu_torch/client/remote.py",
+                 "ceph_tpu_torch/client/rados.py",
+                 "ceph_tpu_torch/client/striper.py",
+                 "ceph_tpu_torch/client/remote_ioctx.py"):
         assert want in names
 
 
@@ -108,6 +129,15 @@ def test_default_device_is_cuda_and_never_falls_back():
             " item osd.0 weight 1.0\n item osd.1 weight 1.0\n}\n")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             XlaMapper(straw, fast=False)
+        # the process cluster's client and daemons: the card unless the
+        # CPU is asked for
+        from ceph_tpu_torch.client.remote import RemoteCluster
+        from ceph_tpu_torch.cluster import daemon
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            RemoteCluster("/nonexistent-cluster-dir")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            daemon.main(["osd", "--cluster-dir", "/nonexistent", "--id", "0"])
+        assert ceph_tpu_torch.default_device() == "cuda"
     assert ceph_tpu_torch.resolve_device("cpu").type == "cpu"
 
 

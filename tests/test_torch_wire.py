@@ -127,6 +127,29 @@ def test_csums_many_with_tails_equals_reference(block, on_cpu):
                           for o in range(0, len(buf), block)]
 
 
+@pytest.mark.parametrize("block", [64, 4096])
+def test_csums_many_from_tensors_equals_reference(block, on_cpu):
+    """The same bytes given as tensors (int32 words, uint8, or None for
+    a buffer held only on the host) give the reference's Csums: the
+    full blocks are crc'd from the tensors, the tails from the host."""
+    rng = np.random.default_rng(5)
+    bufs = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for n in (0, 100, 4 * 4096, 3 * 4096 + 8, 512)]
+    tensors = [None, torch.from_numpy(np.frombuffer(bufs[1], np.uint8)
+                                      .copy()),
+               torch.from_numpy(np.frombuffer(bufs[2], "<i4").copy()),
+               torch.from_numpy(np.frombuffer(bufs[3], "<i4").copy()
+                                .reshape(2, -1)),
+               None]
+    got = crc32_gf2.csums_many(bufs, block=block, tensors=tensors)
+    want = ref_crc.csums_many(bufs, block=block)
+    for buf, g, w in zip(bufs, got, want):
+        assert _cs(g) == _cs(w)
+        assert g.combined == zlib.crc32(buf)
+    with pytest.raises(ValueError, match="tensor of"):
+        crc32_gf2.csums_many([bufs[2]], block=block, tensors=[tensors[1]])
+
+
 def test_crc32_blocks_counts_and_rejects(on_cpu):
     z0 = _zero()
     crc32_gf2.crc32_blocks(np.zeros((3, 64), np.uint8), block=64)
