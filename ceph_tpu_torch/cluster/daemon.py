@@ -32,8 +32,7 @@ mapper follow.  ``tools/vstart.py`` starts every daemon with
 ``--device cpu``, so the daemons open no CUDA context and scan their
 receive verify on the host, as the reference's daemons do under
 ``JAX_PLATFORMS=cpu``; without a card and without ``--device cpu`` a
-daemon raises at start.  The mon's ``balancer_eval`` raises
-``NotImplementedError``: the balancer advisor is not ported yet.
+daemon raises at start.
 """
 from __future__ import annotations
 
@@ -1148,10 +1147,16 @@ class MonDaemon:
                 # mapping from heat x utilization history and propose
                 # upmap moves as a REPORT — dry-run only, nothing here
                 # may touch the osdmap (asserted: epoch unchanged)
-                raise NotImplementedError(
-                    "balancer_eval needs mgr/balancer_advisor.py and "
-                    "cluster/balancer.py, which are not ported yet "
-                    "(ROADMAP queue A, item 8)")
+                from ..mgr.balancer_advisor import evaluate
+                om = self.mon.osdmap
+                epoch0 = om.epoch
+                out = evaluate(
+                    om, self.mon.cluster_stats,
+                    max_moves=int(req.get("max_moves", 8)),
+                    pool=req.get("pool"))
+                assert om.epoch == epoch0, \
+                    "balancer advisor mutated the osdmap"
+                return out
             if cmd == "health":
                 # PG_DEGRADED needs the batched mapper (a compile in
                 # this daemon) — opt-in via {"pgs": True}

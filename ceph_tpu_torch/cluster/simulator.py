@@ -27,8 +27,7 @@ package default — the card — unless the caller asks for the CPU): the
 bitsliced EC pools stage shard plane words there and run kernel K1, and
 byte-layout pools run the host tier, whose codec calls run kernel K2.
 Left out: the reference's data-plane hook (one card keeps the plane
-off); cache tiering and object classes raise NotImplementedError naming
-their ROADMAP item.
+off).
 """
 from __future__ import annotations
 
@@ -55,11 +54,6 @@ ShardKey = Tuple[int, int, str, int]   # (pool, pg, object, shard)
 # HBM budget for one recovery window-gather ([G, S, k+m, U] chunks of
 # the rebuild sweep materialize at most this many bytes each)
 REBUILD_GATHER_BUDGET = 1 << 30
-
-# what the parts of ClusterSim outside this slice need
-_LATER = ("a later slice of the port (ROADMAP queue A, item 9: the "
-          "tiering and class_handler parts of ClusterSim)")
-
 
 def _host(x) -> np.ndarray:
     """A host array for a device tensor, a ShardRef or host data."""
@@ -1018,8 +1012,8 @@ class ClusterSim:
         ClassHandler, src/osd/ClassHandler.cc)."""
         from ..placement.crush_map import ITEM_NONE
         if not hasattr(self, "class_handler"):
-            raise NotImplementedError(
-                f"object classes (cluster/class_handler.py) need {_LATER}")
+            from .class_handler import ClassHandler
+            self.class_handler = ClassHandler()
         pool = self.osdmap.pools[pool_id]
         if pool.type == POOL_ERASURE:
             # the reference likewise rejects class ops needing
@@ -1128,8 +1122,9 @@ class ClusterSim:
     def _tier_hits(self, base_id: int):
         st = self._tier_state.setdefault(base_id, None)
         if st is None:
-            raise NotImplementedError(
-                f"cache tiering (cluster/tiering.py) needs {_LATER}")
+            from .tiering import HitSetHistory
+            st = self._tier_state[base_id] = {
+                "dirty": set(), "hits": HitSetHistory()}
         return st
 
     def tier_promote(self, base_id: int, name: str) -> None:

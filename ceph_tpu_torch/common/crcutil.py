@@ -260,6 +260,36 @@ def note_trusted(nbytes: int) -> None:
         _counters().inc("trusted_csum_bytes", int(nbytes))
 
 
+def wire_zero_counters(cluster_dir: Optional[str] = None,
+                       n_osds: int = 0,
+                       include_local: bool = True) -> Dict[str, float]:
+    """Summed ``perf('wire.zero')`` counters across this process
+    (``include_local``) and every OSD daemon's asok — the one
+    falsifiable sensor behind every crc-passes/copies-per-MiB
+    assertion."""
+    out: Dict[str, float] = {}
+
+    def add(d):
+        for k, v in (d or {}).items():
+            if isinstance(v, (int, float)):
+                out[k] = out.get(k, 0) + v
+
+    if include_local:
+        add(_counters().dump())
+    if cluster_dir is not None:
+        import os
+        from .admin import admin_request
+        for i in range(int(n_osds)):
+            asok = os.path.join(cluster_dir, f"osd.{i}.asok")
+            try:
+                r = admin_request(asok, {"prefix": "perf dump"}) \
+                    .get("result") or {}
+            except (OSError, IOError):
+                continue
+            add(r.get("wire.zero"))
+    return out
+
+
 # --------------------------------------------------------------- Csums ---
 
 class Csums:

@@ -108,11 +108,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      byte compared; no daemon may hold a CUDA context (none listed by
      ``nvidia-smi --query-compute-apps``, none with a ``/dev/nvidia*``
      descriptor open), and no host crc scan in this process may cover a
-     full 4 KiB block.
+     full 4 KiB block;
+ 11. the failure pipeline and the block tier on the cluster step's map
+     (32 hosts x 4 OSDs) with a 3-replica pool (pg_num 2,048) and an
+     RS(8,3) bitsliced pool (pg_num 512), about 100 PG replicas an OSD,
+     4 MiB objects: (a) two ``Thrasher`` soaks on the card (seed 0
+     kill/revive, seed 1 netsplit; 32 objects a pool, 8 cycles), every
+     invariant held; (b) a 256 MiB RBD image in the EC pool written whole
+     in 4 MiB writes, 256 seeded 4 KiB random writes, snapshot, protect,
+     clone, flatten, an unaligned shrink, every byte of image and clone
+     against a host oracle; rbd-mirror of a 64 MiB journaled image onto a
+     second ClusterSim on the card (16 x 4 MiB and 64 x 4 KiB writes,
+     replay, a second replay and a trim applying nothing); neorados's 64
+     concurrent 4 MiB writes and reads; (c) ``calc_pg_upmaps`` on the
+     replicated pool through the card's mapper and the balancer advisor,
+     both equal to the same calls on a CPU copy of the map, the deviation
+     falling, every upmap keeping one replica a host, no lane on the host.
 
 Around each path of phases 3, 6, 7, each pool of phase 8 and each step
-of phase 10 the kernels' launch counts are set to 0 just before and read
-just after: K1's must equal the bitsliced paths' dispatches and the
+of phases 10 and 11 the kernels' launch counts are set to 0 just before
+and read just after: K1's must equal the bitsliced paths' dispatches
+(phase 11: the ec.jax dispatches plus the rebuild dispatches) and the
 bitmatrix pool's ``ec.bitmatrix`` dispatches, K2's the byte pool's and
 the layered pools' ``ec.jax`` encode + decode dispatches, K3's the
 ZeroWire path's encode launches plus its device crc dispatches (phase 10:
@@ -125,6 +141,7 @@ JSON, and the ``{"kernels": [...]}`` line; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -422,8 +439,9 @@ def k1_shapes(device, codec, gen):
     """The main path's K1 shapes at full size: encode [512, 64, 4096]
     (shared masks), a 3-erasure decode (one signature), a rebuild
     [512, 88, 4096] with its own full-width masks per stripe, a ragged
-    W = 4095, and the process cluster's encodes and 2-erasure decode at
-    1 MiB chunks."""
+    W = 4095, the process cluster's encodes and 2-erasure decode at 1 MiB
+    chunks, and phase 11's encodes and 1- and 2-erasure decodes at 4 KiB
+    stripe units."""
     n = K + M
     enc_masks = torch.as_tensor(
         gf2.bitmatrix_masks(gf.gf8_bitmatrix(codec.parity)), device=device)
@@ -456,7 +474,21 @@ def k1_shapes(device, codec, gen):
               (pc_stripes(PC_FLUSH_BYTES), 8 * K, pcW), gen, device)),
           "pc_decode": (dec2, random_words(
               (pc_stripes(PC_FLUSH_BYTES), 8 * K, pcW), gen, device))}
-    return {**pc,
+    # phase 11's shapes: 4 KiB stripe units are 8 planes of 128 words;
+    # an object's put encodes 128 stripes, a small write 1 or 2, the
+    # journal's batched writes up to 171, and degraded reads decode one
+    # or two erasures of 128 stripes
+    R1, _ = codec.decode_matrix([0, 1, 2, 4, 5, 6, 7, 8], [3])
+    dec1 = torch.as_tensor(gf2.bitmatrix_masks(gf.gf8_bitmatrix(R1)),
+                           device=device)
+    p11 = {f"p11_encode_{B}": (enc_masks, random_words((B, 8 * K, 128),
+                                                        gen, device))
+           for B in (128, 1, 2, 171)}
+    p11.update({
+        "p11_decode_1": (dec1, random_words((128, 8 * K, 128), gen, device)),
+        "p11_decode_2": (dec2, random_words((128, 8 * K, 128), gen,
+                                            device))})
+    return {**pc, **p11,
         "encode": (enc_masks, random_words((512, 8 * K, 4096), gen,
                                            device)),
         "decode": (dec_masks, random_words((32, 8 * K, 4096), gen,
@@ -896,6 +928,38 @@ def general_placement(device, n_pgs: int = 1 << 20,
             "legacy_lanes": GP_LANES, "legacy_map_batch_s": legacy}
 
 
+@contextlib.contextmanager
+def launch_shapes(seen):
+    """Sets every kernel's launch count to 0, then, while the block runs,
+    calls ``seen(kernel, key)`` at each K1, K2 or K3 launch ("k1", "k2"
+    or "k3"; ``key`` is the operand's shape and the output rows,
+    "B,C,W->R") through a pass-through around the wrapper's launch.  The
+    launch functions are restored on the way out."""
+    k1, k2, k3 = xor_kernel._launch, gf_pallas._launch, \
+        gf_pallas._launch_fused
+
+    def observed_k1(m3, w3, per_batch):
+        seen("k1", ",".join(map(str, w3.shape)) + f"->{m3.shape[1]}")
+        return k1(m3, w3, per_batch)
+
+    def observed_k2(bm, d3, m):
+        seen("k2", ",".join(map(str, d3.shape)) + f"->{m}")
+        return k2(bm, d3, m)
+
+    def observed_k3(bm, pool):
+        seen("k3", ",".join(map(str, pool.shape)) + f"->{bm.shape[0] // 8}")
+        return k3(bm, pool)
+
+    xor_kernel.launches = gf_pallas.launches = gf_pallas.fused_launches = 0
+    xor_kernel._launch, gf_pallas._launch, gf_pallas._launch_fused = \
+        observed_k1, observed_k2, observed_k3
+    try:
+        yield
+    finally:
+        xor_kernel._launch, gf_pallas._launch, gf_pallas._launch_fused = \
+            k1, k2, k3
+
+
 def counters():
     """(K1 launches, K2 launches, K1 plain runs, K2 plain runs, ec.jax
     encode + decode dispatches, the rebuild sweep's K1 dispatches)."""
@@ -941,69 +1005,64 @@ def cluster_step(device, layout: str, n_objects: int = 64,
              for _ in names]
     times = {}
     phase_launches = {}
-    # K2's launch shapes per phase ("B,k,L->m": launches), observed by a
-    # pass-through around the wrapper's launch
+    # K2's launch shapes per phase ("B,k,L->m": launches)
     k2_shapes_seen = {}
     phase_now = ["put_many"]
-    launch_k2 = gf_pallas._launch
 
-    def observed_launch(bm, d3, m):
-        h = k2_shapes_seen.setdefault(phase_now[0], {})
-        key = ",".join(map(str, d3.shape)) + f"->{m}"
-        h[key] = h.get(key, 0) + 1
-        return launch_k2(bm, d3, m)
+    def seen(kernel, key):
+        if kernel == "k2":
+            h = k2_shapes_seen.setdefault(phase_now[0], {})
+            h[key] = h.get(key, 0) + 1
 
     def mark(phase):
         phase_launches[phase] = [xor_kernel.launches, gf_pallas.launches]
 
     sync(device)
-    xor_kernel.launches = 0
-    gf_pallas.launches = 0
     c0 = counters()
-    gf_pallas._launch = observed_launch
     try:
-        t0 = time.perf_counter()
-        up0, _ = om.map_pgs_batch(1)
-        times["map_pgs_batch_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        placed = sim.put_many(1, names, datas)
-        sync(device)
-        times["put_many_s"] = time.perf_counter() - t0
-        mark("put_many")
-        if any(len(p) != K + M for p in placed.values()):
-            fail(f"cluster step ({layout}): a shard did not land")
-        pool = om.pools[1]
-        up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
-        victims = [o for o in up if o != ITEM_NONE][:M]
-        for v in victims:
-            sim.kill_osd(v)
-        phase_now[0] = "degraded_get"
-        t0 = time.perf_counter()
-        gets = [sim.get(1, nm) for nm in names]
-        times["degraded_get_s"] = time.perf_counter() - t0
-        mark("degraded_get")
-        if gets != datas:
-            fail(f"cluster step ({layout}): a degraded read differs")
-        for v in victims:
-            sim.out_osd(v)
-        phase_now[0] = "recover_all"
-        t0 = time.perf_counter()
-        rec = sim.recover_all(1)
-        sync(device)
-        times["recover_all_s"] = time.perf_counter() - t0
-        mark("recover_all")
-        t0 = time.perf_counter()
-        up1, _ = om.map_pgs_batch(1)
-        times["remap_s"] = time.perf_counter() - t0
-        phase_now[0] = "get_after_recovery"
-        t0 = time.perf_counter()
-        gets2 = [sim.get(1, nm) for nm in names]
-        times["get_after_recovery_s"] = time.perf_counter() - t0
-        mark("get_after_recovery")
-        if gets2 != datas:
-            fail(f"cluster step ({layout}): a read after recovery differs")
+        with launch_shapes(seen):
+            t0 = time.perf_counter()
+            up0, _ = om.map_pgs_batch(1)
+            times["map_pgs_batch_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            placed = sim.put_many(1, names, datas)
+            sync(device)
+            times["put_many_s"] = time.perf_counter() - t0
+            mark("put_many")
+            if any(len(p) != K + M for p in placed.values()):
+                fail(f"cluster step ({layout}): a shard did not land")
+            pool = om.pools[1]
+            up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
+            victims = [o for o in up if o != ITEM_NONE][:M]
+            for v in victims:
+                sim.kill_osd(v)
+            phase_now[0] = "degraded_get"
+            t0 = time.perf_counter()
+            gets = [sim.get(1, nm) for nm in names]
+            times["degraded_get_s"] = time.perf_counter() - t0
+            mark("degraded_get")
+            if gets != datas:
+                fail(f"cluster step ({layout}): a degraded read differs")
+            for v in victims:
+                sim.out_osd(v)
+            phase_now[0] = "recover_all"
+            t0 = time.perf_counter()
+            rec = sim.recover_all(1)
+            sync(device)
+            times["recover_all_s"] = time.perf_counter() - t0
+            mark("recover_all")
+            t0 = time.perf_counter()
+            up1, _ = om.map_pgs_batch(1)
+            times["remap_s"] = time.perf_counter() - t0
+            phase_now[0] = "get_after_recovery"
+            t0 = time.perf_counter()
+            gets2 = [sim.get(1, nm) for nm in names]
+            times["get_after_recovery_s"] = time.perf_counter() - t0
+            mark("get_after_recovery")
+            if gets2 != datas:
+                fail(f"cluster step ({layout}): a read after recovery "
+                     f"differs")
     finally:
-        gf_pallas._launch = launch_k2
         sim.shutdown()
     _, _, p1, p2, disp, rebuild = (b - a for a, b in zip(c0, counters()))
     k1, k2 = xor_kernel.launches, gf_pallas.launches
@@ -1579,19 +1638,10 @@ def plugin_pool(device, name: str, prof: dict, runs: str, n_objects: int,
              for _ in names]
     times, shapes = {}, {}
     step = ["put_many"]
-    launch_k1, launch_k2 = xor_kernel._launch, gf_pallas._launch
 
     def seen(kernel, key):
         h = shapes.setdefault(step[0], {}).setdefault(kernel, {})
         h[key] = h.get(key, 0) + 1
-
-    def observed_k1(m3, w3, per_batch):
-        seen("k1", ",".join(map(str, w3.shape)) + f"->{m3.shape[1]}")
-        return launch_k1(m3, w3, per_batch)
-
-    def observed_k2(bm, d3, m):
-        seen("k2", ",".join(map(str, d3.shape)) + f"->{m}")
-        return launch_k2(bm, d3, m)
 
     def timed(label, fn):
         step[0] = label
@@ -1604,38 +1654,36 @@ def plugin_pool(device, name: str, prof: dict, runs: str, n_objects: int,
     sync(device)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()     # earlier phases' tensors
-    xor_kernel.launches = 0
-    gf_pallas.launches = 0
     plain0 = (xor_kernel.plain_runs, gf_pallas.plain_runs,
-              crc32_gf2.plain_runs, gf_pallas.fused_launches)
+              crc32_gf2.plain_runs)
     disp0 = ec_dispatches()
-    xor_kernel._launch, gf_pallas._launch = observed_k1, observed_k2
     try:
-        placed = timed("put_many", lambda: sim.put_many(1, names, datas))
-        if any(len(p) != size for p in placed.values()):
-            fail(f"{name}: a shard did not land")
-        pool = om.pools[1]
-        up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
-        victims = [o for o in up if o != ITEM_NONE][:2]
-        for v in victims:
-            sim.kill_osd(v)
-        gets = timed("degraded_get", lambda: [sim.get(1, nm)
-                                               for nm in names])
-        if gets != datas:
-            fail(f"{name}: a degraded read differs")
-        for v in victims:
-            sim.out_osd(v)
-        rec = timed("recover_all", lambda: sim.recover_all(1))
-        gets = timed("get_after_recovery", lambda: [sim.get(1, nm)
-                                                     for nm in names])
-        if gets != datas:
-            fail(f"{name}: a read after recovery differs")
+        with launch_shapes(seen):
+            placed = timed("put_many",
+                           lambda: sim.put_many(1, names, datas))
+            if any(len(p) != size for p in placed.values()):
+                fail(f"{name}: a shard did not land")
+            pool = om.pools[1]
+            up = sim.pg_up(pool, sim.object_pg(pool, names[0]))
+            victims = [o for o in up if o != ITEM_NONE][:2]
+            for v in victims:
+                sim.kill_osd(v)
+            gets = timed("degraded_get", lambda: [sim.get(1, nm)
+                                                   for nm in names])
+            if gets != datas:
+                fail(f"{name}: a degraded read differs")
+            for v in victims:
+                sim.out_osd(v)
+            rec = timed("recover_all", lambda: sim.recover_all(1))
+            gets = timed("get_after_recovery", lambda: [sim.get(1, nm)
+                                                         for nm in names])
+            if gets != datas:
+                fail(f"{name}: a read after recovery differs")
     finally:
-        xor_kernel._launch, gf_pallas._launch = launch_k1, launch_k2
         sim.shutdown()
     plain = tuple(b - a for a, b in zip(plain0, (
-        xor_kernel.plain_runs, gf_pallas.plain_runs, crc32_gf2.plain_runs,
-        gf_pallas.fused_launches)))
+        xor_kernel.plain_runs, gf_pallas.plain_runs,
+        crc32_gf2.plain_runs))) + (gf_pallas.fused_launches,)
     bitmatrix, jax = (b - a for a, b in zip(disp0, ec_dispatches()))
     k1, k2 = xor_kernel.launches, gf_pallas.launches
     if any(plain):
@@ -1807,7 +1855,6 @@ def process_cluster(device, card: str) -> dict:
     # block or more, and bulk frame segments sent without folded csums
     host_payload = {"scans": [], "unfolded_sends": []}
     step = [None]
-    launch_k1, launch_k3 = xor_kernel._launch, gf_pallas._launch_fused
     note_scan, csums_scan = crcutil.note_scan, crcutil.Csums.scan
     scan_descriptor = crcutil.Csums.__dict__["scan"]
     frame_parts = wire._frame_parts
@@ -1815,14 +1862,6 @@ def process_cluster(device, card: str) -> dict:
     def seen(kernel, key):
         h = shapes.setdefault(step[0] or "checks", {}).setdefault(kernel, {})
         h[key] = h.get(key, 0) + 1
-
-    def observed_k1(m3, w3, per_batch):
-        seen("k1", ",".join(map(str, w3.shape)) + f"->{m3.shape[1]}")
-        return launch_k1(m3, w3, per_batch)
-
-    def observed_k3(bm, pool):
-        seen("k3", ",".join(map(str, pool.shape)) + f"->{bm.shape[0] // 8}")
-        return launch_k3(bm, pool)
 
     def observed_scan(nbytes, site):
         if step[0] is not None and nbytes > 0:
@@ -1913,7 +1952,8 @@ def process_cluster(device, card: str) -> dict:
     v.start(PC_OSDS, hb_interval=0.5)
     times["daemons_start_s"] = time.perf_counter() - t0
     daemon_pids = {n: p.pid for n, p in v.procs.items() if n != "mon"}
-    xor_kernel._launch, gf_pallas._launch_fused = observed_k1, observed_k3
+    undo = contextlib.ExitStack()
+    undo.enter_context(launch_shapes(seen))
     crcutil.note_scan = observed_scan
     crcutil.Csums.scan = classmethod(observed_csums_scan)
     wire._frame_parts = observed_frame_parts
@@ -2059,7 +2099,7 @@ def process_cluster(device, card: str) -> dict:
                     "k3": gf_pallas.fused_launches}
         rc.close()
     finally:
-        xor_kernel._launch, gf_pallas._launch_fused = launch_k1, launch_k3
+        undo.close()
         crcutil.note_scan = note_scan
         crcutil.Csums.scan = scan_descriptor
         wire._frame_parts = frame_parts
@@ -2139,6 +2179,368 @@ def pc_csum_timing(device, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 11 --
+# The failure pipeline and the block tier on the cluster step's map
+# (32 hosts x 4 OSDs, straw2): a 3-replica pool (CHOOSELEAF_FIRSTN host)
+# and an RS(8,3) bitsliced pool (CHOOSELEAF_INDEP host), their pg_num set
+# so the PG replicas come to about 100 per OSD, Ceph's
+# mon_target_pg_per_osd default: (2,048 x 3 + 512 x 11) / 128 = 92.
+P11_REP_PGS = 2048
+P11_EC_PGS = 512
+P11_OBJ = 4 << 20             # RADOS's and RBD's object size (order 22)
+P11_IMAGE = 1 << 30          # 256 objects of 4 MiB
+P11_SHRINK = P11_IMAGE - 12345
+P11_RANDOM_WRITES = 256       # 4 KiB each
+P11_MIRROR_IMAGE = 256 << 20
+P11_MIRROR_BIG, P11_MIRROR_SMALL = 16, 64
+P11_NEO_OBJECTS = 64
+P11_CYCLES = 8
+P11_PROFILE = {"plugin": "jax", "k": str(K), "m": str(M),
+               "technique": "reed_sol_van", "layout": "bitsliced"}
+
+
+def p11_osdmap(device):
+    """The phase's OSDMap on ``device``: pool 1 replicated, pool 2 EC."""
+    from ceph_tpu_torch.cluster.osdmap import (OSDMap, PGPool, POOL_ERASURE,
+                                               POOL_REPLICATED)
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        RULE_CHOOSELEAF_FIRSTN, RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE,
+        Rule)
+    cmap, root = build_flat_cluster(n_hosts=32, osds_per_host=4)
+    for op in (RULE_CHOOSELEAF_FIRSTN, RULE_CHOOSELEAF_INDEP):
+        cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0), (op, 0, TYPE_HOST),
+                                  (RULE_EMIT, 0, 0)]))
+    om = OSDMap(cmap, device=device)
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name="rep", type=POOL_REPLICATED, size=3,
+                       pg_num=P11_REP_PGS, crush_rule=0))
+    om.add_pool(PGPool(id=2, name="ec", type=POOL_ERASURE, size=K + M,
+                       pg_num=P11_EC_PGS, crush_rule=1,
+                       erasure_code_profile="default"))
+    return om
+
+
+def p11_stack(device):
+    """A ClusterSim and its Monitor on the phase's map, as the thrasher's
+    ``build_default_stack`` wires them."""
+    from ceph_tpu_torch.cluster.monitor import Monitor
+    from ceph_tpu_torch.cluster.simulator import ClusterSim
+    sim = ClusterSim(p11_osdmap(device), device=device)
+    sim.create_ec_profile("default", dict(P11_PROFILE))
+    codec = sim.codec_for(sim.osdmap.pools[2])
+    check_devices(codec, device, "phase 11 EC pool")
+    if not sim._device_staging(codec):
+        fail("phase 11: the RS(8,3) pool did not take the HBM staging tier")
+    return sim, Monitor(sim.osdmap, failure_reports_needed=2)
+
+
+def p11_step(device, label: str, fn, steps: dict):
+    """Run one step of phase 11 with the kernels' counts set to 0 just
+    before and read just after (K1's launches by shape); records the
+    step's wall time and accounting in ``steps`` and returns ``fn()``'s
+    result."""
+    shapes = {}
+
+    def seen(kernel, key):
+        if kernel == "k1":
+            shapes[key] = shapes.get(key, 0) + 1
+
+    def snap():
+        return counters() + (crc32_gf2.plain_runs,)
+
+    sync(device)
+    with launch_shapes(seen):
+        c0 = snap()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        wall = time.perf_counter() - t0
+    _, _, p1, p2, disp, rebuild, p3 = (b - a for a, b in zip(c0, snap()))
+    k1, k2, k3 = xor_kernel.launches, gf_pallas.launches, \
+        gf_pallas.fused_launches
+    steps[label] = {"s": wall, "k1_launches": k1, "ec_dispatches": disp,
+                    "rebuild_dispatches": rebuild, "k1_shapes": shapes}
+    if p1 or p2 or p3:
+        fail(f"phase 11 {label}: a plain version ran ({p1}, {p2}, {p3})")
+    if k2 or k3:
+        fail(f"phase 11 {label}: K2 launched {k2}, K3 {k3} on the K1 path")
+    if k1 != disp + rebuild:
+        fail(f"phase 11 {label}: K1 launched {k1} times; the step made "
+             f"{disp} ec.jax and {rebuild} rebuild dispatches")
+    return out
+
+
+def p11_thrash(device, seed: int, netsplit: bool) -> dict:
+    """11a: one seeded Thrasher soak over both pools on the card; every
+    invariant must hold."""
+    from ceph_tpu_torch.cluster.thrasher import (NETSPLIT_FAULTPOINTS,
+                                                 Thrasher, ThrashConfig)
+    from ceph_tpu_torch.common import faults
+    sim, mon = p11_stack(device)
+    cfg = ThrashConfig(seed=seed, objects=32, object_size=P11_OBJ,
+                       cycles=P11_CYCLES, max_down=2)
+    if netsplit:                      # what `ceph thrash --netsplit` sets
+        cfg.netsplit = True
+        cfg.faultpoints = NETSPLIT_FAULTPOINTS
+        cfg.settle_ticks = max(cfg.settle_ticks, 40)
+    label = "netsplit" if netsplit else "kill_revive"
+    steps = {}
+    thr = Thrasher(sim, mon, [1, 2], cfg)
+    # the soak's payloads come from the thrasher's seeded per-byte
+    # generator; its time is read apart from the rest of the soak
+    blob, payloads = thr._blob, {"n": 0, "s": 0.0}
+
+    def timed_blob(n):
+        t0 = time.perf_counter()
+        out = blob(n)
+        payloads["s"] += time.perf_counter() - t0
+        payloads["n"] += 1
+        return out
+    thr._blob = timed_blob
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        report = p11_step(device, label, thr.run, steps)
+    finally:
+        sim.shutdown()
+        faults.reset()
+    if not report["ok"]:
+        fail(f"phase 11 thrash ({label}, seed {seed}): "
+             f"{report['failures']}")
+    st = steps[label]
+    if st["k1_launches"] == 0:
+        fail(f"phase 11 thrash ({label}): K1 never launched")
+    return {"soak": label, "seed": seed, "cycles": cfg.cycles,
+            "objects": cfg.objects, "object_bytes": cfg.object_size,
+            "wall_s": st["s"], "payloads": payloads["n"],
+            "payload_generation_s": payloads["s"],
+            "ticks_to_health_ok": report["invariants"]["health_ticks"],
+            "k1_launches": st["k1_launches"],
+            "ec_dispatches": st["ec_dispatches"],
+            "rebuild_dispatches": st["rebuild_dispatches"],
+            "k1_launch_shapes": st["k1_shapes"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "report": report}
+
+
+def p11_block_tier(device) -> dict:
+    """11b: an RBD image in the RS(8,3) pool (write whole, seeded random
+    4 KiB writes, snapshot, protect, clone, flatten, unaligned shrink,
+    every byte of image and clone against a host oracle); rbd-mirror of a
+    journaled image onto a second ClusterSim on the card; neorados's
+    concurrent 4 MiB writes and reads."""
+    import asyncio
+    from ceph_tpu_torch.client.neorados import AsyncRados
+    from ceph_tpu_torch.client.rados import Rados
+    from ceph_tpu_torch.client.rbd import RBD, Image
+    from ceph_tpu_torch.client.rbd_mirror import JournaledImage, \
+        MirrorReplayer
+    steps = {}
+    rng = np.random.default_rng(SEED + 11)
+    sim_a, mon_a = p11_stack(device)
+    sim_b, mon_b = p11_stack(device)
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rados_a = Rados(sim_a, mon_a).connect()
+        io_a = rados_a.open_ioctx("ec")
+        io_b = Rados(sim_b, mon_b).connect().open_ioctx("ec")
+        # ---- RBD
+        rbd = RBD(io_a)
+        rbd.create("vol", size=P11_IMAGE, order=22)
+        img = Image(io_a, "vol")
+        oracle = bytearray(rng.integers(0, 256, P11_IMAGE, dtype=np.uint8)
+                           .tobytes())
+
+        def write_whole():
+            for off in range(0, P11_IMAGE, P11_OBJ):
+                img.write(off, bytes(oracle[off:off + P11_OBJ]))
+        p11_step(device, "rbd_write_image", write_whole, steps)
+        offs = rng.integers(0, P11_IMAGE // 4096, P11_RANDOM_WRITES) * 4096
+        blocks = [rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
+                  for _ in offs]
+
+        def random_writes():
+            for off, blk in zip(offs, blocks):
+                img.write(int(off), blk)
+                oracle[int(off):int(off) + 4096] = blk
+        p11_step(device, "rbd_random_4k_writes", random_writes, steps)
+
+        def snap_clone_flatten():
+            img.snap_create("s1")
+            img.protect_snap("s1")
+            rbd.clone("vol", "s1", "clone")
+            Image(io_a, "clone").flatten()
+        p11_step(device, "rbd_snap_protect_clone_flatten",
+                 snap_clone_flatten, steps)
+        p11_step(device, "rbd_unaligned_shrink",
+                 lambda: img.resize(P11_SHRINK), steps)
+
+        def read_back():
+            return (Image(io_a, "vol").read(0, P11_IMAGE),
+                    Image(io_a, "clone").read(0, P11_IMAGE))
+        got_img, got_clone = p11_step(device, "rbd_read_back", read_back,
+                                      steps)
+        if len(got_img) != P11_SHRINK or \
+                got_img != bytes(oracle[:P11_SHRINK]):
+            fail("phase 11 rbd: the shrunk image differs from its oracle")
+        if got_clone != bytes(oracle):
+            fail("phase 11 rbd: the flattened clone differs from its "
+                 "oracle")
+        if Image(io_a, "clone").parent is not None or \
+                Image(io_a, "vol").snap_list() != ["s1"]:
+            fail("phase 11 rbd: clone still linked or snapshot list wrong")
+        del got_img, got_clone, oracle
+        # ---- rbd-mirror: site A's journaled image onto site B
+        RBD(io_a).create("mirror", size=P11_MIRROR_IMAGE, order=22)
+        prim = JournaledImage(io_a, "mirror")
+        moracle = bytearray(P11_MIRROR_IMAGE)
+        stride = P11_MIRROR_IMAGE // P11_MIRROR_BIG
+        big = [(i * stride, rng.integers(0, 256, P11_OBJ, dtype=np.uint8)
+                .tobytes()) for i in range(P11_MIRROR_BIG)]
+        small = [(int(o) * 4096, rng.integers(0, 256, 4096, dtype=np.uint8)
+                  .tobytes()) for o in rng.integers(
+                      0, P11_MIRROR_IMAGE // 4096, P11_MIRROR_SMALL)]
+
+        def journaled_writes():
+            for off, data in big + small:
+                prim.write(off, data)
+                moracle[off:off + len(data)] = data
+        p11_step(device, "mirror_journaled_writes", journaled_writes, steps)
+        rep = MirrorReplayer(io_a, io_b, "mirror", peer="site-b")
+        applied = p11_step(device, "mirror_replay", rep.replay, steps)
+        sec = Image(io_b, "mirror").read(0, P11_MIRROR_IMAGE)
+        if applied != P11_MIRROR_BIG + P11_MIRROR_SMALL or \
+                sec != bytes(moracle) or \
+                prim.read(0, P11_MIRROR_IMAGE) != bytes(moracle):
+            fail(f"phase 11 rbd-mirror: {applied} entries applied, or the "
+                 f"secondary differs from the primary")
+        again = rep.replay()
+        trimmed = rep.trim_committed()
+        after_trim = rep.replay()
+        if again or after_trim:
+            fail(f"phase 11 rbd-mirror: a second replay applied {again}, "
+                 f"after trim {after_trim}")
+        del sec, moracle
+        # ---- neorados: concurrent 4 MiB write_full, then read
+        blobs = [rng.integers(0, 256, P11_OBJ, dtype=np.uint8).tobytes()
+                 for _ in range(P11_NEO_OBJECTS)]
+
+        def neorados(verb):
+            async def flow():
+                async with AsyncRados(rados_a) as ar:
+                    io = await ar.open_ioctx("ec")
+                    if verb == "write":
+                        return await asyncio.gather(*[
+                            io.write_full(f"neo{i}", b)
+                            for i, b in enumerate(blobs)])
+                    return await asyncio.gather(*[
+                        io.read(f"neo{i}") for i in range(len(blobs))])
+            return asyncio.run(flow())
+        p11_step(device, "neorados_write_full",
+                 lambda: neorados("write"), steps)
+        got = p11_step(device, "neorados_read", lambda: neorados("read"),
+                       steps)
+        if list(got) != blobs:
+            fail("phase 11 neorados: a read differs from its write")
+        rados_a.shutdown()
+    finally:
+        sim_a.shutdown()
+        sim_b.shutdown()
+    return {"image_bytes": P11_IMAGE, "order": 22,
+            "random_4k_writes": P11_RANDOM_WRITES, "shrunk_to": P11_SHRINK,
+            "mirror_image_bytes": P11_MIRROR_IMAGE,
+            "mirror_entries_applied": applied,
+            "mirror_objects_trimmed": trimmed,
+            "neorados_objects": P11_NEO_OBJECTS, "steps": steps,
+            "k1_launches": sum(s["k1_launches"] for s in steps.values()),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+class P11Stats:
+    """The two ClusterStats surfaces the balancer advisor reads: seeded
+    per-PG heat rows (a zipf over the pool's PGs) and per-OSD
+    utilization."""
+
+    def __init__(self, om, pool: int):
+        rng = np.random.default_rng(SEED + 12)
+        heat = rng.zipf(1.3, om.pools[pool].pg_num).astype(np.float64)
+        self.rows = sorted(({"pgid": f"{pool}.{pg}", "pool": pool,
+                             "heat": float(min(h, 1e4))}
+                            for pg, h in enumerate(heat)),
+                           key=lambda r: -r["heat"])
+        util = rng.uniform(0.05, 0.6, om.max_osd)
+        self.df = [{"daemon": f"osd.{o}", "utilization": float(u)}
+                   for o, u in enumerate(util)]
+
+    def pg_heat(self, pool=None, top=None):
+        rows = [r for r in self.rows if pool is None or r["pool"] == pool]
+        return rows[:top] if top else rows
+
+    def osd_df(self):
+        return self.df
+
+
+def p11_balancer(device) -> dict:
+    """11c: calc_pg_upmaps on the 3-replica pool through the card's
+    mapper, and the balancer advisor's dry run; both against the same
+    calls on a CPU copy of the map."""
+    from ceph_tpu_torch.cluster.balancer import (calc_pg_upmaps,
+                                                 osd_ancestors,
+                                                 rule_failure_domain)
+    from ceph_tpu_torch.convert import osdmap_from_state, osdmap_state
+    from ceph_tpu_torch.mgr.balancer_advisor import evaluate
+    from ceph_tpu_torch.placement.crush_map import ITEM_NONE
+    om = p11_osdmap(device)
+    cpu = osdmap_from_state(osdmap_state(om), device="cpu")
+    stats = P11Stats(om, 1)
+    pc = perf("crush.mapper")
+    steps = {}
+    f0 = pc.dump().get("fallback_lanes", 0)
+    e0 = om.epoch
+    report = p11_step(device, "balancer_evaluate",
+                      lambda: evaluate(om, stats, max_moves=8, pool=1),
+                      steps)
+    if om.epoch != e0 or report["epoch"] != e0:
+        fail("phase 11 balancer: the advisor moved the map's epoch")
+    res = p11_step(device, "calc_pg_upmaps",
+                   lambda: calc_pg_upmaps(om, pool_ids=[1]), steps)
+    fallback = pc.dump().get("fallback_lanes", 0) - f0
+    want_report = evaluate(cpu, stats, max_moves=8, pool=1)
+    want = calc_pg_upmaps(cpu, pool_ids=[1])
+    if report != want_report:
+        fail("phase 11 balancer: the advisor's report differs from the "
+             "CPU copy's")
+    if om.pg_upmap_items != cpu.pg_upmap_items or \
+            (res.rounds, res.moves, res.max_deviation_before,
+             res.max_deviation_after) != \
+            (want.rounds, want.moves, want.max_deviation_before,
+             want.max_deviation_after):
+        fail("phase 11 balancer: pg_upmap_items differ from the CPU copy's")
+    if not res.moves or res.max_deviation_after >= res.max_deviation_before:
+        fail(f"phase 11 balancer: the deviation did not fall "
+             f"({res.max_deviation_before} -> {res.max_deviation_after})")
+    if fallback:
+        fail(f"phase 11 balancer: {fallback} lanes fell back to the host")
+    anc = osd_ancestors(om.crush, rule_failure_domain(om.crush, 0))
+    for (pid, pg) in om.pg_upmap_items:
+        up = [o for o in om.pg_to_up_acting_osds(pid, pg)[0]
+              if o != ITEM_NONE]
+        doms = [int(anc[o]) for o in up]
+        if len(doms) != len(set(doms)):
+            fail(f"phase 11 balancer: PG {pid}.{pg} collapsed hosts {up}")
+    return {"pool": 1, "pg_num": P11_REP_PGS, "osds": om.max_osd,
+            "rounds": res.rounds, "moves": res.moves,
+            "max_deviation_before": res.max_deviation_before,
+            "max_deviation_after": res.max_deviation_after,
+            "upmap_pgs": len(om.pg_upmap_items), "fallback_lanes": fallback,
+            "advisor_score_before": report["score_before"],
+            "advisor_score_after": report["score_after"],
+            "advisor_moves": report.get("moves", 0), "steps": steps}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2190,13 +2592,16 @@ def time_k2(shapes, card: str) -> dict:
 
 def time_k1(shapes, card: str) -> dict:
     """K1's device time at the encode, decode and rebuild shapes, at the
-    liber8tion (w = 8) and liberation (w = 7) encodes, and at the process
-    cluster's staged put, durable put and 2-erasure decode."""
+    liber8tion (w = 8) and liberation (w = 7) encodes, at the process
+    cluster's staged put, durable put and 2-erasure decode, and at phase
+    11's object put, small write and 2-erasure decode."""
     timings = {}
     for name, iters in (("encode", 50), ("decode", 50), ("rebuild", 50),
                         ("liber8tion_w8_encode", 50),
                         ("liberation_w7_encode", 50), ("pc_put", 4),
-                        ("pc_durable_put", 20), ("pc_decode", 20)):
+                        ("pc_durable_put", 20), ("pc_decode", 20),
+                        ("p11_encode_128", 50), ("p11_encode_1", 50),
+                        ("p11_decode_2", 50)):
         masks, words = shapes[name]
         B, C, W = words.shape
         R = masks.shape[-2]
@@ -2336,12 +2741,30 @@ def main() -> int:
     emit({"phase": "process_cluster", **pc})
     emit({"phase": "pc_csum_timing", **pc_csum_timing(device, card)})
     torch.cuda.empty_cache()
+
+    # 11. the failure pipeline and the block tier (each step's counts are
+    # read around it inside)
+    p11_k1 = 0
+    for seed, netsplit in ((0, False), (1, True)):
+        th = p11_thrash(device, seed, netsplit)
+        th["gpu"] = card
+        emit({"phase": "thrash", **th})
+        p11_k1 += th["k1_launches"]
+        torch.cuda.empty_cache()
+    bt = p11_block_tier(device)
+    bt["gpu"] = card
+    emit({"phase": "block_tier", **bt})
+    p11_k1 += bt["k1_launches"]
+    torch.cuda.empty_cache()
+    bal = p11_balancer(device)
+    bal["gpu"] = card
+    emit({"phase": "balancer", **bal})
     emit({"kernels": [
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
          "replaces": "ceph_tpu/ops/xor_kernel.py:76",
          "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
-         plugin_k1 + pc["k1_launches"],
+         plugin_k1 + pc["k1_launches"] + p11_k1,
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],

@@ -8,10 +8,10 @@ CPU, and records every answer: map epochs and incrementals, consensus
 versions, config values, health codes, failure-report verdicts, the
 objecter's placements, epochs and retries, the librados-shaped IoCtx
 reads, and an in-process mon quorum's elections, commits, applied
-decrees, leases and logs.  The records must be equal.  Mirrors
-tests/test_control_plane.py (but its heartbeat cases: ``heartbeat.py``
-is not ported), tests/test_mon_quorum.py and the Rados case of
-tests/test_aux_components.py.
+decrees, leases and logs, the sim tier's heartbeat detection and the
+PG peering state machine.  The records must be equal.  Mirrors
+tests/test_control_plane.py, tests/test_mon_quorum.py and the Rados and
+peering cases of tests/test_aux_components.py.
 """
 import types
 from typing import Dict
@@ -22,22 +22,26 @@ import torch
 
 import ceph_tpu_torch
 from ceph_tpu.client import rados as ref_rados
+from ceph_tpu.cluster import heartbeat as ref_heartbeat
 from ceph_tpu.cluster import kv as ref_kv
 from ceph_tpu.cluster import mon_quorum as ref_quorum
 from ceph_tpu.cluster import monitor as ref_monitor
 from ceph_tpu.cluster import objecter as ref_objecter
 from ceph_tpu.cluster import osdmap as ref_osdmap
+from ceph_tpu.cluster import peering as ref_peering
 from ceph_tpu.cluster import simulator as ref_simulator
 from ceph_tpu.common import options as ref_options
 from ceph_tpu.parallel import multihost as ref_multihost
 from ceph_tpu.placement import builder as ref_builder
 from ceph_tpu.placement import crush_map as ref_crush_map
 from ceph_tpu_torch.client import rados as port_rados
+from ceph_tpu_torch.cluster import heartbeat as port_heartbeat
 from ceph_tpu_torch.cluster import kv as port_kv
 from ceph_tpu_torch.cluster import mon_quorum as port_quorum
 from ceph_tpu_torch.cluster import monitor as port_monitor
 from ceph_tpu_torch.cluster import objecter as port_objecter
 from ceph_tpu_torch.cluster import osdmap as port_osdmap
+from ceph_tpu_torch.cluster import peering as port_peering
 from ceph_tpu_torch.cluster import simulator as port_simulator
 from ceph_tpu_torch.common import options as port_options
 from ceph_tpu_torch.parallel import multihost as port_multihost
@@ -52,11 +56,13 @@ torch.set_num_threads(1)
 REF = types.SimpleNamespace(
     name="ref", mon=ref_monitor, q=ref_quorum, obj=ref_objecter,
     om=ref_osdmap, sim=ref_simulator, opts=ref_options, rados=ref_rados,
-    kv=ref_kv, builder=ref_builder, cm=ref_crush_map)
+    kv=ref_kv, builder=ref_builder, cm=ref_crush_map, hb=ref_heartbeat,
+    peering=ref_peering)
 PORT = types.SimpleNamespace(
     name="port", mon=port_monitor, q=port_quorum, obj=port_objecter,
     om=port_osdmap, sim=port_simulator, opts=port_options,
-    rados=port_rados, kv=port_kv, builder=port_builder, cm=port_crush_map)
+    rados=port_rados, kv=port_kv, builder=port_builder, cm=port_crush_map,
+    hb=port_heartbeat, peering=port_peering)
 
 
 @pytest.fixture(autouse=True)
@@ -187,6 +193,93 @@ def mon_failure_reports(pkg, sim):
     return out
 
 
+# ----------------------------------------------------------- heartbeat ---
+
+def heartbeat_detects_and_marks_down(pkg, sim):
+    """tests/test_control_plane.py's heartbeat cases: a dead OSD is
+    reported by its ring peers and marked down after the grace; a
+    healthy cluster ticks with no markdown."""
+    mon = pkg.mon.Monitor(sim.osdmap, failure_reports_needed=2)
+    hb = pkg.hb.HeartbeatMonitor(sim, mon, pkg.hb.HeartbeatConfig(
+        n_peers=3, grace_ticks=2))
+    out = [hb.peers_of(6), hb.peers_of(23)]
+    sim.fail_osd(6)
+    out.append([hb.tick() for _ in range(5)])
+    out += [sim.osdmap.is_up(6), list(hb.marked_down), hb.ticks,
+            {t: dict(c) for t, c in hb.missed.items()},
+            [_inc(i) for i in mon.incrementals]]
+    healthy = pkg.hb.HeartbeatMonitor(sim, pkg.mon.Monitor(sim.osdmap))
+    out.append([healthy.tick() for _ in range(4)])
+    return out
+
+
+def heartbeat_down_out_and_partition(pkg, sim):
+    """The auto down->out grace (vetoed by ``noout``) and a netsplit
+    reporter cut off from the mon, whose report never lands."""
+    from ceph_tpu.common import faults as ref_faults
+    from ceph_tpu_torch.common import faults as port_faults
+    faults = ref_faults if pkg is REF else port_faults
+    mon = pkg.mon.Monitor(sim.osdmap, failure_reports_needed=1)
+    hb = pkg.hb.HeartbeatMonitor(sim, mon, pkg.hb.HeartbeatConfig(
+        grace_ticks=1, down_out_ticks=2))
+    sim.fail_osd(2)
+    out = [[hb.tick() for _ in range(4)], list(hb.auto_outs),
+           int(sim.osdmap.osd_weight[2])]
+    mon.set_flag("noout", True)
+    sim.fail_osd(9)
+    out += [[hb.tick() for _ in range(4)], list(hb.auto_outs),
+            int(sim.osdmap.osd_weight[9])]
+    mon.set_flag("noout", False)
+    faults.arm("net.partition", groups=[
+        ["osd.12", "osd.13", "osd.14"],
+        ["client", "mon"] + [f"osd.{o}" for o in range(24)
+                              if o not in (12, 13, 14)]])
+    try:
+        out += [[hb.tick() for _ in range(3)],
+                [sim.osdmap.is_up(o) for o in range(24)]]
+    finally:
+        faults.disarm("net.partition")
+    out += [[hb.tick() for _ in range(2)], list(hb.marked_down),
+            list(hb.auto_outs), [_inc(i) for i in mon.incrementals]]
+    return out
+
+
+# ------------------------------------------------------------- peering ---
+
+def peering_clean_path(pkg, sim):
+    """tests/test_aux_components.py's clean-path case."""
+    sim.put(2, "obj", b"payload" * 100)
+    pool = sim.osdmap.pools[2]
+    pg = sim.object_pg(pool, "obj")
+    m = pkg.peering.PGStateMachine(sim, 2, pg)
+    res = m.peer()
+    return [res.state, res.history, res.up, res.missing_osds,
+            res.recovered]
+
+
+def peering_recovers_after_failure(pkg, sim):
+    """tests/test_aux_components.py's re-peer after a failure: every PG
+    of the pool settles Clean, the lagging member recovers."""
+    rng = np.random.default_rng(23)
+    for i in range(6):
+        sim.put(2, f"p{i}", rng.integers(0, 256, 20000)
+                .astype(np.uint8).tobytes())
+    placed = sim.put(2, "p0", rng.integers(0, 256, 20000)
+                     .astype(np.uint8).tobytes())
+    victim = placed[0]
+    sim.kill_osd(victim)
+    sim.write(2, "p0", 10, b"while-down")
+    sim.revive_osd(victim)
+    coord = pkg.peering.PeeringCoordinator(sim, 2)
+    results = coord.handle_map_change()
+    return [placed, coord.states(),
+            {pg: (r.state, r.history, r.up, r.missing_osds,
+                  sorted(r.recovered.items()))
+             for pg, r in results.items()},
+            sim.get(2, "p0")[10:20], sim.scrub(2),
+            [sim.get(2, f"p{i}") for i in range(6)]]
+
+
 # ------------------------------------------------------------ objecter ---
 
 def objecter_io(pkg, sim):
@@ -285,6 +378,8 @@ def rados_striper(pkg, sim):
 
 @pytest.mark.parametrize("scenario", [
     mon_incrementals, mon_config_db, mon_health, mon_failure_reports,
+    heartbeat_detects_and_marks_down, heartbeat_down_out_and_partition,
+    peering_clean_path, peering_recovers_after_failure,
     objecter_io, objecter_gives_up, rados_ioctx, rados_striper],
     ids=lambda f: f.__name__)
 def test_control_plane_equals_reference(scenario, ref_mapper):
@@ -311,6 +406,33 @@ def test_control_plane_holds_the_reference_contract(ref_mapper):
     try:
         out = objecter_gives_up(PORT, sim)
         assert out[1] == ("raised", "TooManyRetries")
+    finally:
+        sim.shutdown()
+    sim = make_sim(PORT, ref_mapper)
+    try:
+        out = heartbeat_detects_and_marks_down(PORT, sim)
+        assert [d for t in out[2] for d in t] == [6]
+        assert out[3] is False and out[-1] == [[]] * 4
+        assert any(6 in i[1] and i[1][6] is False for i in out[-2])
+    finally:
+        sim.shutdown()
+    sim = make_sim(PORT, ref_mapper)
+    try:
+        res = peering_clean_path(PORT, sim)
+        assert res[0] == port_peering.CLEAN and res[3] == []
+        for st in (port_peering.GET_INFO, port_peering.GET_LOG,
+                   port_peering.GET_MISSING):
+            assert st in res[1]
+    finally:
+        sim.shutdown()
+    sim = make_sim(PORT, ref_mapper)
+    try:
+        out = peering_recovers_after_failure(PORT, sim)
+        assert out[1] == {port_peering.CLEAN: 32}
+        assert any(port_peering.RECOVERING in r[1] or
+                   port_peering.BACKFILLING in r[1]
+                   for r in out[2].values())
+        assert out[3] == b"while-down" and out[4] == []
     finally:
         sim.shutdown()
     sim = make_sim(PORT, ref_mapper)

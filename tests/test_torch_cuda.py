@@ -21,6 +21,7 @@ import torch
 from ceph_tpu.ops import gf2 as gf2_ref
 from ceph_tpu_torch.ec import instance
 from ceph_tpu_torch.ops import gf, gf2, gf_jax, gf_pallas, xor_kernel
+from test_torch_powercycle import PC_CFG, kill_windows, seeded_schedule
 
 # One intra-op thread per test process: the suite runs under several
 # xdist workers, and a full torch pool in each oversubscribes the
@@ -848,3 +849,37 @@ def test_process_cluster_k1_launches_per_step(card_cluster):
     assert steps["staged_put"][0] == card_cluster["tries"]["staged_put"]
     assert steps["flush"][0] == 0
     assert steps["degraded_get_many_to_device"][0] >= 1
+
+
+def _powercycle(d):
+    from ceph_tpu_torch.cluster.thrasher import (PowerCycleConfig,
+                                                 PowerCycleThrasher)
+    return PowerCycleThrasher(d, PowerCycleConfig(**PC_CFG)).run()
+
+
+def test_powercycle_soak_with_the_client_on_the_card(card, tmp_path):
+    """tests/test_thrasher.py's powercycle soak, seed 0, with the
+    ``RemoteCluster`` on the card (its checksums on K3's crc leg): zero
+    acked-write loss, boot fsck clean, and each schedule (card and CPU
+    client) equal to the seed's for its kill windows, so the two are
+    equal wherever the victims died at the same write (a window's length
+    is timing)."""
+    import ceph_tpu_torch
+    prev = ceph_tpu_torch.default_device()
+    try:
+        ceph_tpu_torch.set_default_device("cuda")
+        got = _powercycle(str(tmp_path / "card"))
+        ceph_tpu_torch.set_default_device("cpu")
+        want = _powercycle(str(tmp_path / "cpu"))
+    finally:
+        ceph_tpu_torch.set_default_device(prev)
+    assert got["failures"] == [] and got["ok"] is True
+    inv = got["invariants"]
+    assert inv["acked_writes_lost"] == 0
+    assert inv["fsck_errors_post_cycle"] == 0
+    assert inv["powercycles"] == 2
+    for rep in (got, want):
+        assert rep["schedule"] == seeded_schedule(
+            kill_windows(rep["schedule"]))
+    if kill_windows(got["schedule"]) == kill_windows(want["schedule"]):
+        assert got["schedule"] == want["schedule"]

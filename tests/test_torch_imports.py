@@ -88,7 +88,19 @@ def test_port_files_exist():
                  "ceph_tpu_torch/client/remote.py",
                  "ceph_tpu_torch/client/rados.py",
                  "ceph_tpu_torch/client/striper.py",
-                 "ceph_tpu_torch/client/remote_ioctx.py"):
+                 "ceph_tpu_torch/client/remote_ioctx.py",
+                 "ceph_tpu_torch/cluster/heartbeat.py",
+                 "ceph_tpu_torch/cluster/peering.py",
+                 "ceph_tpu_torch/cluster/thrasher.py",
+                 "ceph_tpu_torch/cluster/tiering.py",
+                 "ceph_tpu_torch/cluster/balancer.py",
+                 "ceph_tpu_torch/mgr/balancer_advisor.py",
+                 "ceph_tpu_torch/mgr/balancer_module.py",
+                 "ceph_tpu_torch/fs/__init__.py",
+                 "ceph_tpu_torch/fs/journaler.py",
+                 "ceph_tpu_torch/client/rbd.py",
+                 "ceph_tpu_torch/client/rbd_mirror.py",
+                 "ceph_tpu_torch/client/neorados.py"):
         assert want in names
 
 
@@ -137,6 +149,10 @@ def test_default_device_is_cuda_and_never_falls_back():
             RemoteCluster("/nonexistent-cluster-dir")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             daemon.main(["osd", "--cluster-dir", "/nonexistent", "--id", "0"])
+        # the thrasher's standalone stack builds its sim on the card
+        from ceph_tpu_torch.cluster.thrasher import build_default_stack
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_default_stack()
         assert ceph_tpu_torch.default_device() == "cuda"
     assert ceph_tpu_torch.resolve_device("cpu").type == "cpu"
 

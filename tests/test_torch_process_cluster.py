@@ -242,19 +242,52 @@ def port_run(tmp_path_factory):
         rc = RemoteCluster(d, ec_profiles={"default": PROFILE})
         cmdlines = {n: open(f"/proc/{p.pid}/cmdline", "rb").read()
                     .split(b"\0") for n, p in v.procs.items()}
-        try:
-            bal = rc.mon_call({"cmd": "balancer_eval"})
-        except Exception as e:        # noqa: BLE001 — the pinned reply
-            bal = e
         rec = run_scenario(d, v, rc, torch.from_numpy,
                            lambda t: t.numpy(), RemoteIoCtx)
-        rec.update(cmdlines=cmdlines, balancer=bal,
+        rec.update(cmdlines=cmdlines, balancer=balancer_snapshot(rc),
                    device=str(rc.ec_backend(2).codec.device))
         rc.close()
         yield rec
     finally:
         v.stop()
         ceph_tpu_torch.set_default_device(prev)
+
+
+def balancer_snapshot(rc, tries=40):
+    """The mon's ``balancer_eval`` report with the map and the two
+    ClusterStats surfaces the advisor reads (per-PG heat rows, per-OSD
+    utilization) taken just before and just after it; a snapshot
+    counts once the two reads agree (the daemons report every
+    heartbeat, so heat can move between calls)."""
+    def surfaces():
+        return (rc.mon_call({"cmd": "get_map"}),
+                rc.mon_call({"cmd": "cluster_stats",
+                             "heat": {}})["pgs"],
+                rc.mon_call({"cmd": "cluster_stats"})["osd_df"])
+    for _ in range(tries):
+        before = surfaces()
+        report = rc.mon_call({"cmd": "balancer_eval"})
+        after = surfaces()
+        if before == after and before[1]:
+            return {"map": before[0], "heat": before[1],
+                    "osd_df": before[2], "report": report}
+        time.sleep(0.25)
+    raise AssertionError("no stable heat snapshot around balancer_eval")
+
+
+def ref_osdmap_from_blob(blob):
+    """The reference OSDMap for the mon's ``get_map`` blob."""
+    from ceph_tpu.cluster.osdmap import OSDMap, PGPool
+    from ceph_tpu.placement.compiler import compile_crushmap
+    m = OSDMap(compile_crushmap(blob["crush_text"]), epoch=blob["epoch"])
+    m.mark_all_in_up()
+    for i, up in enumerate(blob["osd_up"]):
+        m.osd_up[i] = up
+    for i, w in enumerate(blob["osd_weight"]):
+        m.osd_weight[i] = w
+    for p in blob["pools"]:
+        m.add_pool(PGPool(**p))
+    return m
 
 
 def _ref_codec():
@@ -309,17 +342,7 @@ def test_daemon_shards_equal_the_reference_encode(port_run, name):
 def test_up_sets_equal_the_reference_osdmap(port_run):
     """The client's placement of every PG of both pools equals the
     reference OSDMap built from the mon's map blob."""
-    from ceph_tpu.cluster.osdmap import OSDMap, PGPool
-    from ceph_tpu.placement.compiler import compile_crushmap
-    blob = port_run["map"]
-    m = OSDMap(compile_crushmap(blob["crush_text"]), epoch=blob["epoch"])
-    m.mark_all_in_up()
-    for i, up in enumerate(blob["osd_up"]):
-        m.osd_up[i] = up
-    for i, w in enumerate(blob["osd_weight"]):
-        m.osd_weight[i] = w
-    for p in blob["pools"]:
-        m.add_pool(PGPool(**p))
+    m = ref_osdmap_from_blob(port_run["map"])
     for pid, ups in port_run["up"].items():
         assert ups == [m.pg_to_up_acting_osds(pid, pg)[0]
                        for pg in range(m.pools[pid].pg_num)], pid
@@ -353,12 +376,28 @@ def test_remote_ioctx_contract_over_the_wire(port_run):
         ["hole", "o", "r0"], None, "ObjectNotFound", "ObjectNotFound", None]
 
 
-def test_balancer_eval_raises_not_implemented(port_run):
-    """The mon's balancer advisor is not ported: the command raises
-    NotImplementedError in the daemon and the reply names it."""
-    err = port_run["balancer"]
-    assert isinstance(err, RuntimeError)
-    assert "NotImplementedError" in str(err) and "item 8" in str(err)
+def test_balancer_eval_equals_the_reference_evaluate(port_run):
+    """The mon's balancer advisor (``mgr/balancer_advisor.py``) answers
+    ``balancer_eval`` with the report the reference's ``evaluate`` gives
+    on the same map and the same heat and utilization rows, and leaves
+    the map's epoch unchanged (a dry run)."""
+    from ceph_tpu.mgr.balancer_advisor import evaluate
+    snap = port_run["balancer"]
+
+    class Stats:
+        def pg_heat(self, pool=None, top=None):
+            rows = [r for r in snap["heat"]
+                    if pool is None or r["pool"] == pool]
+            return rows[:top] if top else rows
+
+        def osd_df(self):
+            return snap["osd_df"]
+    om = ref_osdmap_from_blob(snap["map"])
+    want = evaluate(om, Stats(), max_moves=8)
+    got = snap["report"]
+    assert got["pgs_considered"] > 0
+    assert got["epoch"] == snap["map"]["epoch"] == om.epoch
+    assert json.loads(json.dumps(want)) == got
 
 
 def test_daemon_device_defaults_to_cuda_and_raises_without_a_card(

@@ -196,15 +196,71 @@ def test_byte_pool_runs_the_host_tier_and_bitsliced_the_staging_tier():
             sim.shutdown()
 
 
-def test_tiering_and_object_classes_name_the_later_slice():
+def tier_and_cls_on_the_dry_run_sim(sim, om_mod):
+    """``exec_cls`` and the tier paths (``_tier_hits`` under them) on the
+    dry run's sim with a replicated cache pool added over a replicated
+    base; object classes on the EC pool are refused."""
+    import json
+    for pid, name in ((2, "base"), (3, "cache")):
+        sim.osdmap.add_pool(om_mod.PGPool(
+            id=pid, name=name, type=om_mod.POOL_REPLICATED, size=3,
+            pg_num=8, crush_rule=0))
+    out = []
+
+    def rec(fn):
+        try:
+            out.append(fn())
+        except Exception as e:       # noqa: BLE001 — compared by name
+            out.append(type(e).__name__)
+    lock = json.dumps({"name": "a", "type": "exclusive",
+                       "cookie": ""}).encode()
+    rec(lambda: sim.exec_cls(1, "x", "lock", "lock", lock))
+    rec(lambda: sim.exec_cls(2, "x", "lock", "lock", lock))
+    rec(lambda: sim.exec_cls(2, "x", "lock", "info"))
+    rec(lambda: sim.exec_cls(2, "x", "lock", "lock", lock.replace(
+        b'"a"', b'"b"')))
+    rec(lambda: sorted(sim._tier_hits(2)))
+    rec(lambda: sim.tier_add(2, 3))
+    rec(lambda: sim.put(2, "t", b"tiered" * 300))
+    rec(lambda: sorted(sim._tier_hits(2)["dirty"]))
+    rec(lambda: sim._tier_hits(2)["hits"].temperature("t"))
+    rec(lambda: sim.tier_flush(2, "t"))
+    rec(lambda: sim.tier_evict(2, "t"))
+    rec(lambda: sim.get(2, "t"))
+    rec(lambda: sim.tier_agent_work(2, target_objects=0))
+    rec(lambda: sorted(sim.objects))
+    return out
+
+
+def test_tiering_and_object_classes_equal_the_reference(ref_crush):
+    """``exec_cls`` (through ``cluster/class_handler.py``) and
+    ``_tier_hits`` (through ``cluster/tiering.py``) answer as the
+    reference's on the same sim."""
+    from ceph_tpu.cluster import osdmap as ref_om
+    from ceph_tpu.cluster.simulator import ClusterSim
+    from ceph_tpu_torch.cluster import osdmap as port_om
     sim = entry.build_sim(device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sim._tier_hits(1)
-        with pytest.raises(NotImplementedError, match="class_handler"):
-            sim.exec_cls(1, "x", "hello", "say_hello")
+        got = tier_and_cls_on_the_dry_run_sim(sim, port_om)
     finally:
         sim.shutdown()
+    cmap, mapper = ref_crush
+    om = ref_om.OSDMap(cmap)
+    om._mapper, om._mapper_map = mapper, cmap
+    om.mark_all_in_up()
+    om.add_pool(ref_om.PGPool(id=1, name="ec", type=ref_om.POOL_ERASURE,
+                              size=6, pg_num=16, crush_rule=0,
+                              erasure_code_profile="p", stripe_unit=64))
+    ref = ClusterSim(om)
+    ref.create_ec_profile("p", {"plugin": "jax", "k": "4", "m": "2"})
+    try:
+        want = tier_and_cls_on_the_dry_run_sim(ref, ref_om)
+    finally:
+        ref.shutdown()
+    assert got == want
+    assert got[0] == "OSError" and got[1] == b"" and got[3] == "ClsError"
+    assert got[4] == ["dirty", "hits"] and got[7] == ["t"]
+    assert got[11] == b"tiered" * 300
 
 
 # one pool per plugin, every profile six chunks wide so that the module's
