@@ -24,7 +24,7 @@ decode run kernel K1 there, and a flush's checksums run kernel K3's crc
 leg (``ops/crc32_gf2``) while the package default is the card.  Shards
 framed for the daemons are host bytes: a staged device shard is read
 back once, explicitly, before framing (``device_store.to_host``, its
-bytes counted at perf("hbm") ``readback_bytes``).
+bytes counted in ``device_store.readback_bytes``).
 """
 from __future__ import annotations
 

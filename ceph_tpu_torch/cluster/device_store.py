@@ -38,6 +38,10 @@ faults.declare("device.staging_drop",
                "pressure/invalidation racing the read path; dirty "
                "entries are never dropped (they are the only copy)")
 
+# bytes read back from a card by ``to_host``: a module count, kept out
+# of the perf registry so the port's perf dumps carry the reference's keys
+readback_bytes = 0
+
 # process-wide HBM staging occupancy (summed across every cache in the
 # process), exported as perf("hbm") gauges
 _hbm_entries = 0
@@ -100,9 +104,10 @@ class ShardRef:
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """``t`` as a host array: one explicit device->host copy, its bytes
-    counted at perf("hbm") ``readback_bytes`` when they leave a card."""
+    counted in ``readback_bytes`` when they leave a card."""
+    global readback_bytes
     if t.device.type != "cpu":
-        _perf("hbm").inc("readback_bytes", t.numel() * t.element_size())
+        readback_bytes += t.numel() * t.element_size()
     return t.cpu().numpy()
 
 
@@ -220,6 +225,15 @@ class DeviceShardCache:
         self._entries[key] = _Entry(ref, csum, int(ref.size))
         _hbm_account(0 if prev is not None else 1,
                      int(ref.size) - (prev.nbytes if prev else 0))
+        from ..parallel import data_plane
+        if data_plane.enabled():
+            dp = data_plane.plane()
+            if dp is not None:
+                # affinity: the hosting OSD when known, else the EC
+                # shard index (client-side staging)
+                dp.account_staged(
+                    self.owner if self.owner is not None else key[3],
+                    int(ref.size))
 
     def evict(self, key: ShardKey) -> None:
         e = self._entries.pop(key, None)

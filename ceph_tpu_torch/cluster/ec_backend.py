@@ -21,8 +21,9 @@ device boundary:
     src/erasure-code/isa/ErasureCodeIsaTableCache.h:35), and degraded
     assembly.
   * ``ShardIO`` is the transport half: WHERE shard bytes/refs live
-    and how sub-ops reach them (the wire client and the simulator
-    implement it in the reference package; later slices port them).
+    and how sub-ops reach them.  The simulator implements it as
+    ``SimShardIO`` (cluster/simulator.py) and the wire client as
+    ``WireShardIO`` (client/remote.py).
 """
 from __future__ import annotations
 
@@ -169,6 +170,7 @@ class ECBackend:
         flushed).  ``d_host`` lets a caller that already holds the
         payload host-side skip the data readback."""
         from .device_store import ShardRef, to_host
+        from ..parallel.data_plane import plane as _data_plane
         S, U, W = geom.S, geom.U, geom.W
         N = len(names)
         d = self.to_words(payload, N * S, U)
@@ -178,6 +180,7 @@ class ECBackend:
             if d_host is None:
                 d_host = to_host(d)
             p_host = to_host(par)
+        dp = _data_plane()
         writes: List[SubWrite] = []
         for i, name in enumerate(names):
             attrs = geom.attrs()
@@ -188,6 +191,9 @@ class ECBackend:
             s0, s1 = i * S, (i + 1) * S
             for shard in range(self.n):
                 tgt = up[shard] if shard < len(up) else ITEM_NONE
+                if dp is not None and tgt != ITEM_NONE:
+                    # fan-out accounting by OSD-shard -> cell affinity
+                    dp.account_subwrite(tgt)
                 ref = (ShardRef(d, shard, axis=1, s0=s0, s1=s1)
                        if shard < self.k else
                        ShardRef(par, shard - self.k, axis=1,

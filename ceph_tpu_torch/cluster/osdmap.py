@@ -2,9 +2,9 @@
 
 Copy of ``ceph_tpu/cluster/osdmap.py`` whose batched path runs the port's
 mapper (placement/xla_mapper.py) on the map's device (the package
-default, the card, unless the caller asks for the CPU).  The reference's
-data-plane hook in ``map_pgs_batch`` (lanes sharded over a mesh) is left
-out: one card keeps the plane off.
+default, the card, unless the caller asks for the CPU).  With the
+sharded data plane on, ``map_pgs_batch`` splits the PG lanes over the
+plane's mesh (parallel/data_plane.py).
 
 Re-creates the placement policy surface of the reference's OSDMap
 (src/osd/OSDMap.{h,cc}): pools, OSD existence/up/in states and weights,
@@ -452,9 +452,17 @@ class OSDMap:
         pss = np.asarray(pss, dtype=np.int64)
         pps = pool.raw_pg_to_pps_batch(pss)
         mapper = self._batched_mapper()
+        # sharded data plane: the PG lane axis splits across the mesh
+        # (the multi-device ParallelPGMapper, src/osd/OSDMapMapping.h:18);
+        # identical results, the mapper pads lanes to the mesh size
+        from ..parallel.data_plane import plane as _data_plane
+        dp = _data_plane()
         raw = mapper.map_batch(
             self._crush_rule_for(pool), pps, pool.size,
-            self.osd_weight[:self.crush.max_devices]).astype(np.int64)
+            self.osd_weight[:self.crush.max_devices],
+            mesh=dp.mesh if dp is not None else None).astype(np.int64)
+        if dp is not None:
+            dp.account("map", len(pss), 4 * pool.size)
         return self._post_crush_batch(pool, pss, pps, raw)
 
     def _post_crush_batch(self, pool: PGPool, pss, pps, raw

@@ -55,6 +55,11 @@ ShardKey = Tuple[int, int, str, int]   # (pool, pg, object, shard)
 # the rebuild sweep materialize at most this many bytes each)
 REBUILD_GATHER_BUDGET = 1 << 30
 
+# K1 dispatches of the recovery sweep's own rebuild (the codec counts
+# its own in perf("ec.jax")): a module count, kept out of the perf
+# registry so the port's perf dumps carry the reference's keys
+rebuild_dispatches = 0
+
 def _host(x) -> np.ndarray:
     """A host array for a device tensor, a ShardRef or host data."""
     if isinstance(x, torch.Tensor):
@@ -2247,11 +2252,21 @@ class ClusterSim:
         if Tp != T:        # pow2 bucket (the reference's executable cap)
             planes = torch.cat([planes, planes[:Tp - T]])
             masks_d = torch.cat([masks_d, masks_d[:Tp - T]])
-        rebuilt = xor_kernel.xor_matmul_w32(
-            masks_d, planes)[:T].reshape(T, mm, W)
+        from ..parallel.data_plane import plane as _data_plane
+        dp = _data_plane()
+        if dp is not None:
+            # sharded recovery: the (stripe, signature) batch splits
+            # across the mesh, each stripe with its own full-width mask,
+            # and the rebuilt rows are gathered onto every cell, so each
+            # target OSD's affine cell holds its rebuilt shard
+            rebuilt = dp.rebuild_collective(
+                masks_d, planes, kind="recover")[:T].reshape(T, mm, W)
+        else:
+            rebuilt = xor_kernel.xor_matmul_w32(
+                masks_d, planes)[:T].reshape(T, mm, W)
         # the sweep's own K1 dispatch (the codec counts its own in ec.jax)
-        from ..common.perf_counters import perf as _perf
-        _perf("cluster.recovery").inc("rebuild_dispatches")
+        global rebuild_dispatches
+        rebuild_dispatches += 1
         rebuilt_host = _host(rebuilt) if eager else None
         pushes: Dict[int, List[Tuple]] = {}
         for j, mem in enumerate(mems):
@@ -2268,8 +2283,13 @@ class ClusterSim:
                     ((pool_id, pg, name, shard),
                      ShardRef(rebuilt, i, axis=1, s0=pos,
                               s1=pos + n_str), b))
-        n_landed, _ = self._bulk_put_device(pushes)
+        n_landed, landed_tgts = self._bulk_put_device(pushes)
         stats["shards_rebuilt"] += n_landed
+        if dp is not None:
+            # landing accounting for the pushes that actually landed
+            for tgt in landed_tgts:
+                for _key, _ref, _b in pushes[tgt]:
+                    dp.account_landed(tgt, n_str, U)
 
     def recover_delta(self, pool_id: int) -> Dict[str, int]:
         """Log-based delta recovery (the PGLog path the reference

@@ -60,6 +60,8 @@ import random
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..common import faults
 from ..common.op_tracker import tracker as _op_tracker
 from .heartbeat import HeartbeatConfig, HeartbeatMonitor
@@ -83,6 +85,21 @@ NETSPLIT_FAULTPOINTS: Tuple[Tuple[str, str, int], ...] = (
     ("device.eio", "one_in", 10),
     ("msg.drop_ack", "one_in", 4),
 )
+
+
+def random_bytes(rng: random.Random, n: int) -> bytes:
+    """``bytes(rng.getrandbits(8) for _ in range(n))``, drawn at once.
+
+    ``getrandbits(8)`` is the top byte of one 32-bit word of the
+    generator, and ``getrandbits(32 * n)`` fills its little-endian
+    result with n such words in draw order, so the top byte of each
+    word gives the same bytes and leaves the generator in the same
+    state.  ``n == 0`` draws nothing."""
+    if n <= 0:
+        return b""
+    words = np.frombuffer(rng.getrandbits(32 * n).to_bytes(4 * n, "little"),
+                          dtype="<u4")
+    return (words >> 24).astype(np.uint8).tobytes()
 
 
 @dataclass
@@ -158,7 +175,7 @@ class Thrasher:
         self.schedule.append(tuple(event))
 
     def _blob(self, n: int) -> bytes:
-        return bytes(self.rng.getrandbits(8) for _ in range(n))
+        return random_bytes(self.rng, n)
 
     def _write(self, pool_id: int, name: str) -> None:
         """One tracked client write; retried across map catch-up (the
@@ -595,7 +612,7 @@ class PowerCycleThrasher:
         self.schedule.append(tuple(event))
 
     def _blob(self, n: int) -> bytes:
-        return bytes(self.rng.getrandbits(8) for _ in range(n))
+        return random_bytes(self.rng, n)
 
     def _wait(self, fn, desc: str) -> bool:
         """Bounded wait-for-state: the budget is POLLS, not wall

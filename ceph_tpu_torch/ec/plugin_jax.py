@@ -38,6 +38,14 @@ DEFAULT_M = 3
 TECHNIQUES = ("reed_sol_van", "cauchy", "cauchy_good", "isa_rs")
 LAYOUTS = ("bytes", "bitsliced")
 
+
+def _data_plane():
+    """The sharded cluster data plane, or None (parallel_data_plane
+    off, or fewer than two cells).  Resolved per dispatch so a runtime
+    config flip takes effect immediately."""
+    from ..parallel.data_plane import plane
+    return plane()
+
 _NP = {torch.uint8: np.uint8, torch.int32: np.int32}
 
 
@@ -174,7 +182,13 @@ class ErasureCodeJax(MatrixCodec):
         pc = self._pc
         pc.inc("encode_dispatches")
         pc.inc("encode_bytes", 4 * int(words.numel()))
-        out = xor_kernel.xor_matmul_w32(masks, planes)
+        dp = _data_plane()
+        if dp is not None:
+            # sharded data plane: stripes split across the mesh, the
+            # same masked-XOR contraction per cell (bit-identical)
+            out = dp.xor_matmul_w32(masks, planes, kind="put")
+        else:
+            out = xor_kernel.xor_matmul_w32(masks, planes)
         return out.reshape(lead + (self.m, W))
 
     def decode_words_device(self, available_ids, words,
@@ -205,7 +219,13 @@ class ErasureCodeJax(MatrixCodec):
                                            words.device)
         lead = tuple(dev.shape[:-2])
         planes = dev.reshape(lead + (8 * dev.shape[-2], W // 8))
-        out = xor_kernel.xor_matmul_w32(masks, planes)
+        dp = _data_plane()
+        if dp is not None:
+            # one sharded dispatch per signature group: the lost
+            # stripes split across the mesh, accounting psums back
+            out = dp.xor_matmul_w32(masks, planes, kind="decode")
+        else:
+            out = xor_kernel.xor_matmul_w32(masks, planes)
         return out.reshape(lead + (len(erased), W))
 
     def _select_rows(self, available_ids, erased, chunks: torch.Tensor):

@@ -57,7 +57,6 @@ import numpy as np
 import torch
 
 from ..common import crcutil
-from ..common.perf_counters import perf as _perf
 from .gf_jax import bitplane_matmul as _bitplane_matmul_torch
 
 launches = 0            # K2
@@ -182,7 +181,6 @@ def _launch(bm: np.ndarray, d3: torch.Tensor, m: int) -> torch.Tensor:
         raise RuntimeError(f"K2 launch failed: cudaError {rc} "
                            f"(data {tuple(d3.shape)}, m {m})")
     launches += 1
-    _perf("gf_pallas").inc("launches")
     return out
 
 
@@ -405,7 +403,6 @@ def _launch_fused(bm: np.ndarray, pool: torch.Tensor):
         raise RuntimeError(f"K3 launch failed: cudaError {rc} "
                            f"(pool {tuple(pool.shape)}, m {m})")
     fused_launches += 1
-    _perf("gf_pallas").inc("fused_launches")
     return parity, dcrc, pcrc
 
 

@@ -22,12 +22,14 @@ Device block crcs are used for FULL blocks only; a tail's crc is a host
 scan of the valid prefix (counted at ``device_tail``, same convention
 as crc32_gf2.csums_many).
 
-Dispatch (``_dispatch``) is by the pool's device: a CUDA pool launches
-kernel K3 (ops/gf_pallas.fused_ragged_matmul, csrc/ragged_fused.cu); a
-CPU pool runs the plain version :func:`fused_block_math`.  Unlike the
-reference, ``impl="pallas"`` on a CPU pool raises instead of running
-the plain version, and ``impl="plane"`` (the multi-device data plane)
-raises until the plane is ported.
+Dispatch (``_dispatch``): with the sharded data plane on (``impl``
+``auto`` or ``plane``), the pool splits over the plane's cells
+(parallel/data_plane.fused_ragged), each cell running K3 or its plain
+version by its device; otherwise it goes by the pool's device: a CUDA
+pool launches kernel K3 (ops/gf_pallas.fused_ragged_matmul,
+csrc/ragged_fused.cu), a CPU pool runs the plain version
+:func:`fused_block_math`.  Unlike the reference, ``impl="pallas"`` on a
+CPU pool raises instead of running the plain version.
 """
 from __future__ import annotations
 
@@ -171,19 +173,23 @@ def fused_block_math(bitmat: torch.Tensor, crcA8: torch.Tensor, const: int,
 
 def _dispatch(bitmat_np: np.ndarray, pool: torch.Tensor,
               impl: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Route one pool: K3 for a CUDA pool, the plain version for a CPU
-    pool (through gf_pallas.fused_ragged_matmul, which dispatches by
-    device).  ``impl`` names what the caller asks for: ``auto`` either,
-    ``pallas`` the kernel (a CPU pool raises), ``xla`` the plain version
-    (a CUDA pool raises), ``plane`` the multi-device data plane (raises:
-    not ported)."""
-    from ..common.options import config
+    """Route one pool: over the data plane's cells when it is on, else
+    K3 for a CUDA pool and the plain version for a CPU pool (through
+    gf_pallas.fused_ragged_matmul, which dispatches by device).  ``impl``
+    names what the caller asks for: ``auto`` any of them, ``plane`` the
+    data plane when it is on (else as ``auto``), ``pallas`` the kernel
+    (a CPU pool raises), ``xla`` the plain version (a CUDA pool
+    raises)."""
+    from ..parallel import data_plane
     from . import gf_pallas
-    if impl == "plane" or (impl == "auto" and
-                           config().get("parallel_data_plane")):
-        raise NotImplementedError(
-            "the multi-device data plane (ragged_fused over a device mesh) "
-            "is not ported yet: ROADMAP queue A, item 7")
+    if impl not in ("auto", "plane", "pallas", "xla"):
+        raise ValueError(f"unknown impl {impl!r}")
+    pl = data_plane.plane() if impl in ("auto", "plane") else None
+    if pl is not None:
+        parity, dcrc, pcrc = pl.fused_ragged(bitmat_np, pool,
+                                             int(pool.shape[2]))
+        return (parity.cpu().numpy(), dcrc.cpu().numpy().astype(np.uint32),
+                pcrc.cpu().numpy().astype(np.uint32))
     if impl == "pallas" and pool.device.type != "cuda":
         raise ValueError(f"impl='pallas' asks for kernel K3, which runs on "
                          f"a CUDA pool; this pool is on {pool.device}")
@@ -191,8 +197,6 @@ def _dispatch(bitmat_np: np.ndarray, pool: torch.Tensor,
         raise ValueError(f"impl='xla' asks for the plain version, which "
                          f"runs on a CPU pool only; this pool is on "
                          f"{pool.device}")
-    if impl not in ("auto", "pallas", "xla"):
-        raise ValueError(f"unknown impl {impl!r}")
     parity, dcrc, pcrc = gf_pallas.fused_ragged_matmul(bitmat_np, pool)
     return (parity.cpu().numpy(), dcrc.cpu().numpy().astype(np.uint32),
             pcrc.cpu().numpy().astype(np.uint32))

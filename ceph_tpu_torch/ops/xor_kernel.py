@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..common.perf_counters import perf as _perf
 
 launches = 0
 plain_runs = 0
@@ -121,7 +120,6 @@ def _launch(m3: torch.Tensor, w3: torch.Tensor,
             f"K1 launch failed: cudaError {rc} "
             f"(masks {tuple(m3.shape)}, words {tuple(w3.shape)})")
     launches += 1
-    _perf("xor_kernel").inc("launches")
     return out
 
 

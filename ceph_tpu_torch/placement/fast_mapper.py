@@ -573,6 +573,7 @@ class FastMapper:
     def __init__(self, cmap: CrushMap, choose_args_key: object = None,
                  extra_tries: Optional[int] = None, device=None):
         self.cmap = cmap
+        self.choose_args_key = choose_args_key
         self.device = resolve_device(device)
         self.compiled = compile_map(cmap, choose_args_key, n_positions=1)
         if not self.compiled.all_straw2:
@@ -584,6 +585,18 @@ class FastMapper:
             extra_tries = int(_config().get("fastmap_extra_tries"))
         self.extra = max(2, extra_tries)
         self._plans: Dict[Tuple[int, int], list] = {}
+        self._twins: Dict[torch.device, "FastMapper"] = {}
+
+    def _on(self, device: torch.device) -> "FastMapper":
+        """This mapper's tables on ``device``: itself on its own device,
+        else a twin built there once (a mesh cell maps on its device)."""
+        if device == self.dt.items.device:
+            return self
+        if device not in self._twins:
+            self._twins[device] = FastMapper(
+                self.cmap, choose_args_key=self.choose_args_key,
+                extra_tries=self.extra, device=device)
+        return self._twins[device]
 
     # ---- host-side rule analysis ----------------------------------------
     def _plan(self, ruleno: int, result_max: int) -> list:
@@ -752,12 +765,18 @@ class FastMapper:
                                 budget_rows_s // (gw * width)))
 
     def map_batch(self, ruleno: int, xs, result_max: int,
-                  weights: Sequence[int], readback: bool = True):
+                  weights: Sequence[int], mesh=None, readback: bool = True):
         """-> (results [N, result_max] i32, incomplete [N] bool).
 
         Lanes go through in chunks (``chunk_lanes``) and stay on the
         device until one final readback.  ``readback=False`` returns the
-        device tensors (int64 results) instead."""
+        device tensors (int64 results) instead.
+
+        With ``mesh`` the chunk cap scales by ``mesh.size`` and each
+        chunk's lanes split flat, row-major, over the cells
+        (``parallel/mesh.map_lanes``): each cell maps its block on its
+        own device, a fleet all-gathers the rest.  The lanes pad to the
+        cap (or the mesh size) with copies of lane 0, cut off after."""
         if ruleno < 0 or ruleno >= self.cmap.max_rules or \
                 self.cmap.rules[ruleno] is None:
             raise ValueError(f"no rule {ruleno}")
@@ -775,14 +794,30 @@ class FastMapper:
             return empty if readback else tuple(
                 torch.as_tensor(e, device=self.device) for e in empty)
         cap = self.chunk_lanes(ruleno, result_max)
+        if mesh is not None:
+            cap *= mesh.size
+            pad = (-n) % cap if n > cap else (-n) % mesh.size
+            xs_np = np.concatenate([xs_np, xs_np[:1].repeat(pad)])
         x_dev = torch.as_tensor(xs_np, device=self.device)
+
+        def cell(block):
+            twin = self._on(block.device)
+            return twin._trace(twin._plan(ruleno, result_max), result_max,
+                               block, w_dev.to(block.device))
+
         outs, incs = [], []
-        for i in range(0, n, cap):
-            o, inc = self._trace(plan, result_max, x_dev[i:i + cap], w_dev)
+        for i in range(0, len(xs_np), cap):
+            if mesh is None:
+                o, inc = self._trace(plan, result_max, x_dev[i:i + cap],
+                                     w_dev)
+            else:
+                from ..parallel.mesh import map_lanes
+                o, inc = map_lanes(mesh, cell, x_dev[i:i + cap])
             outs.append(o)
             incs.append(inc)
         out_d = outs[0] if len(outs) == 1 else torch.cat(outs)
         inc_d = incs[0] if len(incs) == 1 else torch.cat(incs)
+        out_d, inc_d = out_d[:n], inc_d[:n]
         if not readback:
             return out_d, inc_d
         return (out_d.cpu().numpy().astype(np.int32),

@@ -35,7 +35,7 @@ argonaut profile's local-retry tunables raise UnsupportedMapError.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -675,6 +675,7 @@ class XlaMapper:
                  fast: Optional[bool] = None):
         self.cmap = cmap
         self.choose_args_key = choose_args_key
+        self.n_positions = n_positions
         self.device = resolve_device(device)
         self.compiled = compile_map(cmap, choose_args_key, n_positions)
         if fast is None:
@@ -684,6 +685,7 @@ class XlaMapper:
         self._fast_unsupported = set()    # rule keys outside fast subset
         self._exact_fallback = None       # lazy NativeMapper/scalar fn
         self.tables = self.compiled.tables(self.device)
+        self._twins: Dict[torch.device, "XlaMapper"] = {}
 
     # -- rule interpretation (steps are static data, lanes are tensors) ----
     def _trace_rule(self, ruleno: int, result_max: int, x, weights):
@@ -869,9 +871,26 @@ class XlaMapper:
                 ruleno, np.asarray(xs)[rows], result_max, new_weights)
         return out
 
+    def _on(self, device: torch.device) -> "XlaMapper":
+        """This mapper's tables on ``device``: itself on its own device,
+        else a twin built there once (a mesh cell maps on its device)."""
+        if device == self.tables.items.device:
+            return self
+        if device not in self._twins:
+            self._twins[device] = XlaMapper(
+                self.cmap, choose_args_key=self.choose_args_key,
+                n_positions=self.n_positions, device=device,
+                fast=self._fast_enabled)
+        return self._twins[device]
+
     def map_batch(self, ruleno: int, xs, result_max: int,
-                  weights: Sequence[int]) -> np.ndarray:
+                  weights: Sequence[int], mesh=None) -> np.ndarray:
         """[N] x values -> [N, result_max] i32 osd ids (ITEM_NONE padded).
+
+        With ``mesh`` the lanes split flat, row-major, over the mesh's
+        cells (the multi-device ParallelPGMapper): N pads to the mesh
+        size, each cell maps its block on its own device, and a fleet
+        all-gathers the lanes; the result equals the run without one.
 
         Dispatch: the level-synchronous FastMapper maps supported rules
         (its incomplete lanes recomputed bit-exactly on the host); rules
@@ -896,7 +915,7 @@ class XlaMapper:
                              component="crush.fastmap", lanes=len(xs))
                 with pc.time("fast_map_s"):
                     out, inc = self._fast.map_batch(
-                        ruleno, xs, result_max, weights)
+                        ruleno, xs, result_max, weights, mesh=mesh)
                 if inc.any():
                     rows = np.flatnonzero(inc)
                     pc.inc("fallback_lanes", len(rows))
@@ -918,11 +937,24 @@ class XlaMapper:
         if n == 0:
             return np.zeros((0, result_max), dtype=np.int32)
         cap = int(_config().get("mapper_max_lanes_per_call"))
+        if mesh is not None:
+            cap *= mesh.size
+            pad = (-n) % cap if n > cap else (-n) % mesh.size
+            xs_np = np.concatenate([xs_np, xs_np[:1].repeat(pad)])
         with pc.time("general_map_s"):
             w_dev = torch.as_tensor(w, device=self.device)
             x_dev = torch.as_tensor(xs_np, device=self.device)
-            parts = [self._trace_rule(ruleno, result_max, x_dev[i:i + cap],
-                                      w_dev)
-                     for i in range(0, n, cap)]
+
+            def trace(lanes):
+                if mesh is None:
+                    return self._trace_rule(ruleno, result_max, lanes, w_dev)
+                from ..parallel.mesh import map_lanes
+                return map_lanes(mesh, lambda blk: (self._on(
+                    blk.device)._trace_rule(ruleno, result_max, blk,
+                                            w_dev.to(blk.device)),),
+                    lanes)[0]
+
+            parts = [trace(x_dev[i:i + cap])
+                     for i in range(0, len(xs_np), cap)]
             out_d = parts[0] if len(parts) == 1 else torch.cat(parts)
-            return out_d.cpu().numpy().astype(np.int32)
+            return out_d[:n].cpu().numpy().astype(np.int32)

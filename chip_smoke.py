@@ -123,18 +123,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      concurrent 4 MiB writes and reads; (c) ``calc_pg_upmaps`` on the
      replicated pool through the card's mapper and the balancer advisor,
      both equal to the same calls on a CPU copy of the map, the deviation
-     falling, every upmap keeping one replica a host, no lane on the host.
+     falling, every upmap keeping one replica a host, no lane on the host;
+ 12. the sharded data plane on the card, over a mesh of 4 cells of
+     ``cuda:0`` (1-D) and a 2 x 2 mesh: (a) ``entry.cluster_sharded`` at
+     phase 6's size (RS(8,3) bitsliced, 32 hosts x 4 OSDs, pg_num 256,
+     64 x 4 MiB objects, 3 OSDs killed then out), plane off then on,
+     every byte, the recovery stats and the up sets equal, every cell's
+     put stripes above 0, K1 launched once per cell per plane dispatch,
+     the psum read back equal to the padded rows; (b) the ZeroWire pool
+     through ``fused_ragged``, equal to one unsharded K3 launch, K3 once
+     per cell; (c) ``distributed_encode_step`` at [128, 8, 131072] (K2)
+     and ``distributed_xor_encode_step`` at [512, 64, 4096] (K1), equal
+     to the unsharded kernel, with their byte counters; (d) phase 4's
+     2^20-PG sweep through ``map_pgs_batch`` on the 4-cell mesh, equal to
+     phase 4's; (e) ``multihost``'s all_reduce and all-gather on CUDA
+     tensors at the rebuild's output shape in a one-rank NCCL group the
+     smoke starts and destroys.  Each kernel's time per cell is printed
+     beside the unsharded launch, then the whole smoke's wall time.
 
-Around each path of phases 3, 6, 7, each pool of phase 8 and each step
-of phases 10 and 11 the kernels' launch counts are set to 0 just before
-and read just after: K1's must equal the bitsliced paths' dispatches
-(phase 11: the ec.jax dispatches plus the rebuild dispatches) and the
-bitmatrix pool's ``ec.bitmatrix`` dispatches, K2's the byte pool's and
-the layered pools' ``ec.jax`` encode + decode dispatches, K3's the
-ZeroWire path's encode launches plus its device crc dispatches (phase 10:
-the device crc dispatches alone); the host pools launch nothing, and no
-plain version may run.  The placement phases 4 and 5
-run no kernel, and phase 5 fails if a count moves.  Earlier lines print
+Around each path of phases 3, 6, 7, each pool of phase 8, each step of
+phases 10 and 11 and each run of phase 12 the kernels' launch counts are
+set to 0 just before and read just after: K1's must equal the bitsliced
+paths' dispatches (phase 11: the ec.jax dispatches plus the rebuild
+dispatches; phase 12: those of the plane-off run, and the cells times
+the plane's dispatches of the plane-on run) and the bitmatrix pool's
+codec dispatches (``bitmatrix_codec``'s counts), K2's the byte pool's
+and the layered pools' ``ec.jax`` encode + decode dispatches (phase 12:
+one a cell of each distributed step), K3's the ZeroWire path's encode
+launches plus its device crc dispatches (phase 10: the device crc
+dispatches alone; phase 12: one a cell); the host pools launch nothing,
+and no plain version may run.  The placement phases 4 and 5 and phase
+12's sweep run no kernel; phase 5 and phase 12's sweep fail if a count
+moves.  Earlier lines print
 the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
 JSON, and the ``{"kernels": [...]}`` line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -157,10 +177,11 @@ import numpy as np
 import torch
 
 import ceph_tpu_torch
+from ceph_tpu_torch.cluster import device_store, simulator
 from ceph_tpu_torch.cluster.device_store import DeviceShardCache, \
     assemble_object
 from ceph_tpu_torch.cluster.ec_backend import ECBackend, ObjectGeom, ShardIO
-from ceph_tpu_torch.ec import instance
+from ceph_tpu_torch.ec import bitmatrix_codec, instance
 from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.ops import (_build, crc32_gf2, gf, gf2, gf_jax, gf_pallas,
                                 ragged_fused, xor_kernel)
@@ -608,17 +629,14 @@ def compact(raw: np.ndarray, none: int) -> np.ndarray:
     return np.take_along_axis(raw, order, axis=1)
 
 
-def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
-    """BASELINE configs #3 and #5 on the port: map every PG of a 2^20-PG
-    pool on the 10,000-OSD map, mark ``n_out`` OSDs out, remap through
-    map_pgs_batch and map_batch_delta; every lane against the native
-    mapper."""
+def sweep_map(device, n_pgs: int):
+    """Phase 4's map: 1,000 hosts x 10 OSDs, straw2, CHOOSELEAF_FIRSTN
+    host, one 3-replica pool of ``n_pgs`` PGs.  Returns (cmap, osdmap)."""
     from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_REPLICATED
-    from ceph_tpu_torch.native_bridge import NativeMapper
     from ceph_tpu_torch.placement.builder import TYPE_HOST, \
         build_flat_cluster
     from ceph_tpu_torch.placement.crush_map import (
-        ITEM_NONE, RULE_CHOOSELEAF_FIRSTN, RULE_EMIT, RULE_TAKE, Rule)
+        RULE_CHOOSELEAF_FIRSTN, RULE_EMIT, RULE_TAKE, Rule)
     cmap, root = build_flat_cluster(n_hosts=1000, osds_per_host=10)
     cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
                               (RULE_CHOOSELEAF_FIRSTN, 0, TYPE_HOST),
@@ -627,6 +645,17 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
     om.mark_all_in_up()
     om.add_pool(PGPool(id=1, name="sweep", type=POOL_REPLICATED, size=3,
                        pg_num=n_pgs, crush_rule=0))
+    return cmap, om
+
+
+def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
+    """BASELINE configs #3 and #5 on the port: map every PG of a 2^20-PG
+    pool on the 10,000-OSD map, mark ``n_out`` OSDs out, remap through
+    map_pgs_batch and map_batch_delta; every lane against the native
+    mapper.  ``_up0`` holds the first sweep's up sets for phase 12."""
+    from ceph_tpu_torch.native_bridge import NativeMapper
+    from ceph_tpu_torch.placement.crush_map import ITEM_NONE
+    cmap, om = sweep_map(device, n_pgs)
     pool = om.pools[1]
     pps = pool.raw_pg_to_pps_batch(np.arange(n_pgs))
     nm = NativeMapper(cmap)
@@ -689,7 +718,8 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
             "native_lanes_checked": 3 * n_pgs,
             "native_s": t_native0 + t_native1,
             "native_threads": os.cpu_count(),
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "_up0": up0}
 
 
 # the general-placement cluster: a 10,000-OSD map made before straw2
@@ -967,7 +997,7 @@ def counters():
     return (xor_kernel.launches, gf_pallas.launches, xor_kernel.plain_runs,
             gf_pallas.plain_runs,
             d.get("encode_dispatches", 0) + d.get("decode_dispatches", 0),
-            perf("cluster.recovery").dump().get("rebuild_dispatches", 0))
+            simulator.rebuild_dispatches)
 
 
 def cluster_step(device, layout: str, n_objects: int = 64,
@@ -1593,13 +1623,11 @@ PLUGIN_POOLS = [
 
 
 def ec_dispatches():
-    """(ec.bitmatrix, ec.jax) encode + decode dispatches so far."""
-    out = []
-    for group in ("ec.bitmatrix", "ec.jax"):
-        d = perf(group).dump()
-        out.append(d.get("encode_dispatches", 0) +
-                   d.get("decode_dispatches", 0))
-    return tuple(out)
+    """(bitmatrix codec, ec.jax) encode + decode dispatches so far."""
+    d = perf("ec.jax").dump()
+    return (bitmatrix_codec.encode_dispatches +
+            bitmatrix_codec.decode_dispatches,
+            d.get("encode_dispatches", 0) + d.get("decode_dispatches", 0))
 
 
 def plugin_pool(device, name: str, prof: dict, runs: str, n_objects: int,
@@ -1897,7 +1925,7 @@ def process_cluster(device, card: str) -> dict:
                 ec.get("decode_dispatches", 0),
                 "device_crc_dispatches": zero.get("device_crc_dispatches", 0),
                 "device_crc_bytes": zero.get("device_crc_bytes", 0),
-                "readback_bytes": perf("hbm").dump().get("readback_bytes", 0),
+                "readback_bytes": device_store.readback_bytes,
                 "plain": xor_kernel.plain_runs + gf_pallas.plain_runs +
                 crc32_gf2.plain_runs}
 
@@ -2541,6 +2569,257 @@ def p11_balancer(device) -> dict:
             "advisor_moves": report.get("moves", 0), "steps": steps}
 
 
+# ------------------------------------------------------------ phase 12 --
+#
+# The sharded data plane on one card: a mesh of P12_CELLS cells that all
+# lie on cuda:0 (the port's meshes may repeat a device), 1-D and 2 x 2.
+
+P12_CELLS = 4
+P12_LAYOUTS = ((0, "1d"), (2, "2x2"))
+
+
+def p12_meshes(device) -> dict:
+    from ceph_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    cells = [device] * P12_CELLS
+    return {"1d": make_mesh(P12_CELLS, devices=cells),
+            "2x2": make_mesh_2d(2, 2, devices=cells)}
+
+
+def p12_cluster(device, card: str) -> dict:
+    """(a) ``entry.cluster_sharded`` at phase 6's size on each layout,
+    the kernels' counts set to 0 just before each call and read just
+    after: K1's launches while the plane is on must be the cells times
+    the plane's put + decode + recover dispatches, those of the plane-off
+    run its ec.jax + rebuild dispatches; then the psum of one ragged
+    dispatch on the same plane read back."""
+    from ceph_tpu_torch import entry
+    from ceph_tpu_torch.parallel import data_plane
+    masks = xor_kernel.masks_to_device(
+        gf.gf8_bitmatrix(gf.vandermonde_parity(K, M)), device)
+    out = {}
+    for stripes, name in P12_LAYOUTS:
+        on_k1 = [0]
+
+        def seen(kernel, key):
+            if kernel == "k1" and data_plane.enabled():
+                on_k1[0] += 1
+
+        sync(device)
+        with launch_shapes(seen):
+            c0 = counters()
+            t0 = time.perf_counter()
+            sec = entry.cluster_sharded(
+                P12_CELLS, stripes=stripes, device=device, seed=SEED,
+                k=K, m=M, n_hosts=32, osds_per_host=4, pg_num=256,
+                stripe_unit=128 << 10, technique="reed_sol_van",
+                n_objects=64, obj_bytes=4 << 20, n_victims=M)
+            sync(device)
+            wall = time.perf_counter() - t0
+        _, _, p1, p2, disp, rebuild = (b - a for a, b in zip(c0, counters()))
+        k1, k2, k3 = (xor_kernel.launches, gf_pallas.launches,
+                      gf_pallas.fused_launches)
+        plane = (sec["put_dispatches"] + sec["decode_dispatches"] +
+                 sec["recover_dispatches"])
+        if p1 or p2:
+            fail(f"phase 12 {name}: a plain version ran ({p1}, {p2})")
+        if k2 or k3 or plane == 0 or on_k1[0] != P12_CELLS * plane or \
+                k1 != disp + rebuild - plane + P12_CELLS * plane:
+            fail(f"phase 12 {name}: K1 launched {k1} times ({on_k1[0]} with "
+                 f"the plane on, {plane} plane dispatches x {P12_CELLS} "
+                 f"cells), the path made {disp} ec.jax + {rebuild} rebuild "
+                 f"dispatches; K2 {k2}, K3 {k3}")
+        per = sec["per_chip"]
+        if sorted(per) != [str(i) for i in range(P12_CELLS)] or \
+                any(c.get("put_stripes", 0) <= 0 for c in per.values()):
+            fail(f"phase 12 {name}: a cell counted no put stripes: {per}")
+        if sec["recover"]["shards_rebuilt"] <= 0:
+            fail(f"phase 12 {name}: recovery rebuilt nothing")
+        words = random_words((13, 8 * K, 4096),
+                             torch.Generator(device=device).manual_seed(SEED),
+                             device)
+        with entry.plane_cells(P12_CELLS, stripes, device) as dp:
+            got = dp.xor_matmul_w32(masks, words)
+            psum = dp.psum_probe()
+        padded = 16 if not stripes else 14
+        if psum != padded or not torch.equal(
+                got, xor_kernel.xor_matmul_w32(masks, words)):
+            fail(f"phase 12 {name}: psum {psum} (padded rows {padded}) or "
+                 f"the ragged dispatch differs from the unsharded K1")
+        out[name] = {"k1_launches": k1, "k1_launches_plane_on": on_k1[0],
+                     "plane_k1_dispatches": plane, "wall_s": wall,
+                     "psum_probe": psum, **sec}
+        emit({"phase": "p12_cluster_sharded", "mesh": name, **out[name],
+              "gpu": card})
+        torch.cuda.empty_cache()
+    return out
+
+
+def p12_ragged(device, card: str, zw_pool: np.ndarray) -> dict:
+    """(b) the ZeroWire pool through ``fused_ragged`` on each layout:
+    parity and crcs equal to one unsharded K3 launch, K3 launched once per
+    cell; each cell's block timed beside the unsharded launch."""
+    from ceph_tpu_torch import entry
+    rs42 = gf.gf8_bitmatrix(gf.isa_rs_parity(ZW_K, ZW_M))
+    pool = torch.from_numpy(zw_pool).to(device)
+    G = pool.shape[0]
+    want = gf_pallas.fused_ragged_matmul(rs42, pool)
+    full_ms = graph_ms(lambda: gf_pallas.fused_ragged_matmul(rs42, pool),
+                       iters=10)
+    out = {"launches": 0}
+    for stripes, name in P12_LAYOUTS:
+        with entry.plane_cells(P12_CELLS, stripes, device) as dp:
+            n0 = gf_pallas.fused_launches
+            got = dp.fused_ragged(rs42, pool, pool.shape[2])
+            sync(device)
+            n = gf_pallas.fused_launches - n0
+            if n != P12_CELLS:
+                fail(f"phase 12 ragged {name}: K3 launched {n} times on "
+                     f"{P12_CELLS} cells")
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"phase 12 ragged {name}: the plane differs from one "
+                     f"unsharded K3 launch")
+            del got
+            plane_ms = cuda_ms(lambda: dp.fused_ragged(rs42, pool,
+                                                       pool.shape[2]),
+                               iters=3, warmup=1)
+        rows = P12_CELLS if not stripes else 2
+        block = pool[:-(-G // rows)]
+        cell_ms = graph_ms(lambda: gf_pallas.fused_ragged_matmul(rs42, block),
+                           iters=10)
+        out["launches"] += n
+        out[name] = {"cell_blocks": int(block.shape[0]), "cell_ms": cell_ms,
+                     "cells_ms": P12_CELLS * cell_ms,
+                     "unsharded_ms": full_ms, "plane_call_ms": plane_ms,
+                     "k3_launches": n}
+        emit({"phase": "p12_ragged", "mesh": name, "pool": [G, ZW_K, 4096],
+              **out[name], "gpu": card})
+        torch.cuda.empty_cache()
+    return out
+
+
+def p12_steps(device, card: str, gen) -> dict:
+    """(c) the distributed encode steps on each mesh: K2 at [128, 8,
+    131072], K1 at [512, 64, 4096]; each equal to the unsharded kernel,
+    its byte counter equal to the int64 sum of the data's values, the
+    kernel launched once per cell; each cell's block timed beside the
+    unsharded launch."""
+    from ceph_tpu_torch.parallel import mesh as pmesh
+    bitmat = gf.gf8_bitmatrix(gf.vandermonde_parity(K, M))
+    masks = xor_kernel.masks_to_device(bitmat, device)
+    data = torch.randint(0, 256, (128, K, 131072), dtype=torch.uint8,
+                         device=device, generator=gen)
+    words = random_words((512, 8 * K, 4096), gen, device)
+    cases = {
+        "k2": (lambda m: pmesh.distributed_encode_step(m, bitmat, data),
+               lambda d: gf_pallas.bitplane_matmul(bitmat, d), data,
+               lambda: gf_pallas.launches),
+        "k1": (lambda m: pmesh.distributed_xor_encode_step(m, masks, words),
+               lambda d: xor_kernel.xor_matmul_w32(masks, d), words,
+               lambda: xor_kernel.launches)}
+    out = {"k1_launches": 0, "k2_launches": 0}
+    for kern, (step, unsharded, operand, count) in cases.items():
+        want = unsharded(operand)
+        total_want = int(operand.sum(dtype=torch.int64))
+        full_ms = graph_ms(lambda: unsharded(operand), iters=10)
+        for name, m in p12_meshes(device).items():
+            n0 = count()
+            t0 = time.perf_counter()
+            got, total = step(m)
+            sync(device)
+            wall = time.perf_counter() - t0
+            n = count() - n0
+            if n != P12_CELLS or not torch.equal(got, want) or \
+                    int(total) != total_want:
+                fail(f"phase 12 {kern} step {name}: {n} launches, parity "
+                     f"equal {torch.equal(got, want)}, bytes {int(total)} "
+                     f"vs {total_want}")
+            del got
+            per = operand.shape[0] // pmesh.batch_sharding(m).blocks
+            cell_ms = graph_ms(lambda: unsharded(operand[:per]), iters=10)
+            out[f"{kern}_launches"] += n
+            out[f"{kern}_{name}"] = {
+                "operand": list(operand.shape), "cell_rows": per,
+                "cell_ms": cell_ms, "cells_ms": P12_CELLS * cell_ms,
+                "unsharded_ms": full_ms, "step_wall_s": wall,
+                "launches": n, "byte_counter": total_want}
+            emit({"phase": "p12_step", "kernel": kern, "mesh": name,
+                  **out[f"{kern}_{name}"], "gpu": card})
+    del data, words
+    torch.cuda.empty_cache()
+    return out
+
+
+def p12_sweep(device, card: str, up0: np.ndarray) -> dict:
+    """(d) phase 4's 2^20-PG sweep through ``map_pgs_batch`` with the
+    plane's 4-cell mesh: equal to phase 4's sweep without one, every cell
+    mapping a quarter of the lanes, no kernel launched."""
+    from ceph_tpu_torch import entry
+    n_pgs = int(up0.shape[0])
+    _, om = sweep_map(device, n_pgs)
+    perf("dataplane").reset()
+    k0 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches)
+    with entry.plane_cells(P12_CELLS, 0, device):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        up, _ = om.map_pgs_batch(1)
+        sync(device)
+        wall = time.perf_counter() - t0
+    d = perf("dataplane").dump()
+    lanes = [d.get(f"shard{i}.map_lanes", 0) for i in range(P12_CELLS)]
+    if not np.array_equal(up, up0):
+        fail("phase 12 sweep: the mesh's sweep differs from phase 4's")
+    if lanes != [n_pgs // P12_CELLS] * P12_CELLS or k0 != (
+            xor_kernel.launches, gf_pallas.launches,
+            gf_pallas.fused_launches):
+        fail(f"phase 12 sweep: cell lanes {lanes}, or a kernel launched")
+    res = {"pgs": n_pgs, "map_pgs_batch_s": wall, "cell_lanes": lanes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    emit({"phase": "p12_sweep", **res, "gpu": card})
+    return res
+
+
+def p12_nccl(device, card: str, gen) -> dict:
+    """(e) ``multihost``'s cross-rank legs on CUDA tensors in a one-rank
+    NCCL group started here (the fleet rule of ``ensure_initialized``
+    needs 2 or more processes): all_reduce and the tiled all-gather at
+    the rebuild's output shape [512, 24, 4096] int32, each equal to the
+    result inside the process; the group is destroyed after."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ceph_tpu_torch.parallel import multihost
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        x = random_words((512, 8 * M, 4096), gen, device)
+        red = multihost.all_reduce_sum(x)
+        blocks = list(x.chunk(P12_CELLS))
+        gat = multihost.all_gather_cells(blocks, device)
+        sync(device)
+        if red.dtype != x.dtype or not torch.equal(red, x) or \
+                not torch.equal(gat, torch.stack(blocks)):
+            fail("phase 12 nccl: a collective differs from the result "
+                 "inside the process")
+        res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+               "shape": list(x.shape),
+               "all_reduce_ms": cuda_ms(lambda: multihost.all_reduce_sum(x),
+                                        iters=10),
+               "all_gather_ms": cuda_ms(
+                   lambda: multihost.all_gather_cells(blocks, device),
+                   iters=10)}
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        fail("phase 12 nccl: the group outlived destroy_process_group")
+    emit({"phase": "p12_nccl", **res, "gpu": card})
+    return res
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2627,6 +2906,7 @@ def time_k1(shapes, card: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     device = torch.device("cuda")
@@ -2677,6 +2957,7 @@ def main() -> int:
 
     # 4. the placement sweep (no kernel: batched torch on the card)
     sweep = placement_sweep(device)
+    sweep_up0 = sweep.pop("_up0")
     sweep["gpu"] = card
     emit({"phase": "placement_sweep", **sweep})
 
@@ -2759,12 +3040,23 @@ def main() -> int:
     bal = p11_balancer(device)
     bal["gpu"] = card
     emit({"phase": "balancer", **bal})
+
+    # 12. the sharded data plane over a mesh of cells on the card (each
+    # run's counts are read around it inside)
+    t12 = time.perf_counter()
+    p12c = p12_cluster(device, card)
+    p12r = p12_ragged(device, card, zw_pool)
+    p12s = p12_steps(device, card, gen)
+    p12_sweep(device, card, sweep_up0)
+    p12_nccl(device, card, gen)
+    emit({"phase": "p12_total", "s": time.perf_counter() - t12, "gpu": card})
     emit({"kernels": [
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
          "replaces": "ceph_tpu/ops/xor_kernel.py:76",
          "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
-         plugin_k1 + pc["k1_launches"] + p11_k1,
+         plugin_k1 + pc["k1_launches"] + p11_k1 +
+         sum(c["k1_launches"] for c in p12c.values()) + p12s["k1_launches"],
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -2772,7 +3064,8 @@ def main() -> int:
         {"name": "gf_bitplane", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/gf_bitplane.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:34",
-         "launches": steps["bytes"]["k2_launches"] + plugin_k2,
+         "launches": steps["bytes"]["k2_launches"] + plugin_k2 +
+         p12s["k2_launches"],
          "max_abs_err": max(errs2.values()),
          "ms": enc2["ms"], "plain_ms": enc2["plain_ms"],
          "bound_ms": enc2["bound_ms"], "bound_by": enc2["bound_by"],
@@ -2780,11 +3073,15 @@ def main() -> int:
         {"name": "ragged_fused", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/ragged_fused.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:83",
-         "launches": zw["k3_launches"] + pc["k3_launches"],
+         "launches": zw["k3_launches"] + pc["k3_launches"] +
+         p12r["launches"],
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],
          "library_ms": None}]})
+    emit({"phase": "total", "s": time.perf_counter() - t_start,
+          "gpu": card})
+    print(f"gpu: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -657,22 +657,3 @@ def test_multihost_single_process_answers_equal_the_reference():
                lambda m: m.stripe_order([5, -1, 2, 9, 0]),
                lambda m: m.stripe_order([])):
         assert fn(port_multihost) == fn(ref_multihost)
-
-
-def test_multihost_fleet_functions_raise_until_the_plane_is_ported(
-        monkeypatch):
-    """The fleet half waits for the multi-GPU plane: joining, the
-    fleet mesh and a chip's host raise NotImplementedError (the
-    reference's ensure_initialized is a no-op returning False with no
-    coordinator), as does an active fleet's fan-out order."""
-    assert ref_multihost.ensure_initialized() is False
-    for fn in (port_multihost.ensure_initialized,
-               port_multihost.global_mesh_2d,
-               lambda: port_multihost.host_of_chip(None, 0)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn()
-    monkeypatch.setattr(port_multihost, "_active", True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port_multihost.stripe_order([0, 1, 2])
-    with pytest.raises(NotImplementedError):
-        port_multihost.process_index()

@@ -883,3 +883,32 @@ def test_powercycle_soak_with_the_client_on_the_card(card, tmp_path):
             kill_windows(rep["schedule"]))
     if kill_windows(got["schedule"]) == kill_windows(want["schedule"]):
         assert got["schedule"] == want["schedule"]
+
+
+# ---------------------------------------------------------- data plane --
+
+@pytest.mark.parametrize("stripes", [0, 2])
+def test_plane_of_four_cells_on_the_card_equals_unsharded_k1(card, stripes):
+    """The data plane over 4 cells of one card (1-D and 2 x 2): the put
+    encode and the per-stripe rebuild equal one unsharded K1 launch, each
+    dispatch launches K1 once per cell, and no plain version runs."""
+    from ceph_tpu_torch.entry import plane_cells
+    k, m = 8, 3
+    masks = torch.as_tensor(gf2.bitmatrix_masks(gf.gf8_bitmatrix(
+        gf.vandermonde_parity(k, m))), device=card)
+    words = torch.as_tensor(rand_words((13, 8 * k, 512), 90), device=card)
+    rmasks = torch.as_tensor(rebuild_masks(13, k, m, 91), device=card)
+    rwords = torch.as_tensor(rand_words((13, 8 * (k + m), 512), 92),
+                             device=card)
+    want_put = xor_kernel.xor_matmul_w32(masks, words)
+    want_reb = xor_kernel.xor_matmul_w32(rmasks, rwords)
+    with plane_cells(4, stripes, card) as dp:
+        plain, n0 = xor_kernel.plain_runs, xor_kernel.launches
+        put = dp.xor_matmul_w32(masks, words, kind="put")
+        reb = dp.rebuild_collective(rmasks, rwords)
+        torch.cuda.synchronize()
+        assert xor_kernel.launches - n0 == 2 * 4
+        assert xor_kernel.plain_runs == plain
+        assert dp.psum_probe() == (16 if not stripes else 14)
+    assert put.device.type == reb.device.type == "cuda"
+    assert torch.equal(put, want_put) and torch.equal(reb, want_reb)

@@ -26,8 +26,7 @@ import ceph_tpu_torch
 from ceph_tpu.ec import bitmatrix_raid6 as ref_raid6
 from ceph_tpu.ec import instance as ref_instance
 from ceph_tpu.ec.interface import ErasureCodeError as RefErasureCodeError
-from ceph_tpu_torch.common.perf_counters import perf
-from ceph_tpu_torch.ec import bitmatrix_raid6, instance
+from ceph_tpu_torch.ec import bitmatrix_codec, bitmatrix_raid6, instance
 from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.ops import xor_kernel
 
@@ -181,12 +180,14 @@ def test_raid6_constructions_refuse_what_the_reference_refuses(technique,
     ("liberation", 5, 7), ("blaum_roth", 6, 6), ("liber8tion", 6, 8)])
 def test_bitmatrix_batch_paths_take_k1s_wrapper(technique, k, w):
     """Each batched encode or decode is one trip through K1's wrapper
-    (its plain version on a CPU tensor) and one ``ec.bitmatrix``
-    dispatch; the device forms return tensors on the data's device."""
+    (its plain version on a CPU tensor) and one dispatch of the
+    bitmatrix codec's module counts; the device forms return tensors on
+    the data's device."""
     port, _ = codecs("jerasure", technique, k, 2)
     data = stripes(port, k, 4, seed=32)
-    pc = perf("ec.bitmatrix")
-    runs, d0 = xor_kernel.plain_runs, pc.dump()
+    runs = xor_kernel.plain_runs
+    e0, de0 = (bitmatrix_codec.encode_dispatches,
+               bitmatrix_codec.decode_dispatches)
     par = port.encode_chunks_device(data)
     assert isinstance(par, torch.Tensor) and par.device.type == "cpu"
     assert np.array_equal(par.numpy(), port.encode_chunks_batch(data))
@@ -195,10 +196,9 @@ def test_bitmatrix_batch_paths_take_k1s_wrapper(technique, k, w):
     dec = port.decode_chunks_device(avail, torch.from_numpy(
         np.ascontiguousarray(full[:, avail])), [1])
     assert torch.equal(dec, torch.from_numpy(full[:, [1]]))
-    d1 = pc.dump()
     assert xor_kernel.plain_runs - runs == 3
-    assert d1["encode_dispatches"] - d0.get("encode_dispatches", 0) == 2
-    assert d1["decode_dispatches"] - d0.get("decode_dispatches", 0) == 1
+    assert bitmatrix_codec.encode_dispatches - e0 == 2
+    assert bitmatrix_codec.decode_dispatches - de0 == 1
     # no erasures: an empty tensor on the device, no kernel trip
     none = port.decode_chunks_device(avail, full[:, avail], [])
     assert isinstance(none, torch.Tensor)

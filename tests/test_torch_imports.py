@@ -42,6 +42,10 @@ def test_port_files_exist():
                  "ceph_tpu_torch/ec/plugin_jax.py",
                  "ceph_tpu_torch/cluster/ec_backend.py", "chip_smoke.py",
                  "ceph_tpu_torch/ops/ragged_fused.py",
+                 "ceph_tpu_torch/parallel/mesh.py",
+                 "ceph_tpu_torch/parallel/multihost.py",
+                 "ceph_tpu_torch/parallel/data_plane.py",
+                 "ceph_tpu_torch/tools/check_multihost.py",
                  "ceph_tpu_torch/ops/crc32_gf2.py",
                  "ceph_tpu_torch/common/crcutil.py",
                  "ceph_tpu_torch/common/auth.py",

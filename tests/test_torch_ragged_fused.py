@@ -19,8 +19,10 @@ tolerance):
     the nibble slicing tables, the chunk roll, the lane and warp
     operators, the XOR folds) equals zlib at every block size class, so
     the tables the card reads are held here;
-  * ``impl="pallas"`` and ``impl="plane"`` on the CPU raise (the
-    reference falls back to its XLA route; the port does not).
+  * ``impl="pallas"`` on a CPU pool raises (the reference falls back
+    to its XLA route; the port does not); ``impl="plane"`` with the
+    data plane off runs the unsharded path, as the reference's does
+    (the plane itself: tests/test_torch_data_plane.py).
 """
 import zlib
 
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import ceph_tpu_torch
 from ceph_tpu.ops import gf as ref_gf
 from ceph_tpu.ops import ragged_fused as ref_rf
 from ceph_tpu_torch.common import crcutil
@@ -350,22 +353,28 @@ def test_crc_leg_and_crc32_blocks_on_the_cpu_keep_their_contracts():
 # ------------------------------------------------------ the divergences --
 
 def test_pallas_and_plane_raise_on_the_cpu():
-    """The reference runs ``impl="pallas"`` off-TPU through its XLA route
-    and ``impl="plane"`` on its data plane; the port has no fallback
-    (ROADMAP section C) and no plane yet (queue A, item 7)."""
+    """The reference runs ``impl="pallas"`` off-TPU through its XLA
+    route; the port has no fallback (ROADMAP section C).  ``impl="plane"``
+    with the plane off, or on with one cell (the CPU's default), takes
+    the unsharded path in both packages; the plane's own cases are in
+    tests/test_torch_data_plane.py."""
     rng = np.random.default_rng(27)
     A = gf.isa_rs_parity(K, M)
     shards = _shards(rng, [4097])
     with pytest.raises(ValueError, match="CUDA pool"):
         ragged_fused.encode(A, shards, impl="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ragged_fused.encode(A, shards, impl="plane", device="cpu")
+    want = ref_rf.encode_padded(A, shards)
+    _assert_identical(ragged_fused.encode(A, shards, impl="plane",
+                                          device="cpu"), want)
+    prev = ceph_tpu_torch.default_device()
+    ceph_tpu_torch.set_default_device("cpu")
     config().set("parallel_data_plane", True)
     try:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ragged_fused.encode(A, shards, device="cpu")
+        _assert_identical(ragged_fused.encode(A, shards, impl="plane"),
+                          want)
     finally:
         config().clear("parallel_data_plane")
+        ceph_tpu_torch.set_default_device(prev)
     with pytest.raises(ValueError, match="unknown impl"):
         ragged_fused.encode(A, shards, impl="tpu", device="cpu")
     _assert_identical(ragged_fused.encode(A, shards, impl="xla",

@@ -21,6 +21,7 @@ import torch
 import ceph_tpu_torch
 from ceph_tpu_torch import entry
 from ceph_tpu_torch.common.perf_counters import perf
+from ceph_tpu_torch.ec import bitmatrix_codec
 from ceph_tpu_torch.ops import gf_pallas, xor_kernel
 
 # One intra-op thread per test process: the suite runs under several
@@ -364,7 +365,7 @@ def test_plugin_pool_equals_reference(ref_crush, name):
     assert got["rec"]["shards_rebuilt"] > 0
     if prof["plugin"] == "clay":
         assert got["rec"].get("ranged_repairs", 0) > 0
-    # (K1 trips, ec.bitmatrix dispatches, K2 trips, ec.jax dispatches):
+    # (K1 trips, bitmatrix codec dispatches, K2 trips, ec.jax dispatches):
     # on the CPU each kernel wrapper takes its plain version, once per
     # dispatch of the codec that runs it; the host codecs run neither
     k1, bitmatrix, k2, jax = trips
@@ -382,5 +383,63 @@ def kernel_trips():
         d = perf(group).dump()
         return d.get("encode_dispatches", 0) + d.get("decode_dispatches", 0)
 
-    return (xor_kernel.plain_runs, dispatches("ec.bitmatrix"),
+    return (xor_kernel.plain_runs,
+            bitmatrix_codec.encode_dispatches +
+            bitmatrix_codec.decode_dispatches,
             gf_pallas.plain_runs, dispatches("ec.jax"))
+
+
+def test_perf_groups_carry_the_references_keys(ref_crush, monkeypatch):
+    """The port's perf registry holds what the reference's holds: after
+    the bitsliced cluster step (seed 0, 8 objects) and a liber8tion
+    bitmatrix pool's put, run in each package against an empty registry,
+    every group has the same key set.  Kernel launches, the bitmatrix
+    codec's dispatches, the rebuild sweep's dispatches and the readback
+    bytes are module counts of the port, outside the registry."""
+    from ceph_tpu.cluster.osdmap import OSDMap as RefOSDMap
+    from ceph_tpu.cluster.osdmap import PGPool as RefPGPool
+    from ceph_tpu.cluster.simulator import ClusterSim as RefClusterSim
+    from ceph_tpu.common import perf_counters as ref_pc
+    from ceph_tpu_torch.common import perf_counters as port_pc
+    monkeypatch.setattr(ref_pc, "_collection", None)
+    monkeypatch.setattr(port_pc, "_collection", None)
+    prof = PLUGIN_POOLS["jerasure-liber8tion"]
+    pool_args = dict(id=2, name="bm", type=2, size=6, pg_num=16,
+                     crush_rule=0, erasure_code_profile="bm",
+                     stripe_unit=64)
+    rng = np.random.default_rng(9)
+    names = [f"b{i}" for i in range(4)]
+    datas = [rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+             for _ in names]
+
+    entry.cluster_step(device="cpu", layout="bitsliced", seed=0,
+                       n_objects=N_OBJECTS)
+    sim = entry.build_sim(device="cpu")
+    from ceph_tpu_torch.cluster.osdmap import PGPool
+    try:
+        sim.osdmap.add_pool(PGPool(**pool_args))
+        sim.create_ec_profile("bm", dict(prof))
+        sim.put_many(2, names, datas)
+    finally:
+        sim.shutdown()
+
+    ref_cluster_step(ref_crush, None)
+    cmap, mapper = ref_crush
+    rom = RefOSDMap(cmap)
+    rom._mapper, rom._mapper_map = mapper, cmap
+    rom.mark_all_in_up()
+    rom.add_pool(RefPGPool(**pool_args))
+    ref = RefClusterSim(rom)
+    try:
+        ref.create_ec_profile("bm", dict(prof))
+        ref.put_many(2, names, datas)
+    finally:
+        ref.shutdown()
+
+    # a group of the reference that the port lacks is one whose keys the
+    # port never writes: ``jit``, the reference's XLA compiles
+    got = {g: sorted(d) for g, d in port_pc.perf().dump().items()}
+    want = {g: sorted(d) for g, d in ref_pc.perf().dump().items()}
+    assert {g: want.get(g, []) for g in got} == got
+    assert set(want) - set(got) == {"jit"}
+    assert got["ec.jax"] and got["hbm"] and got["crush.mapper"]

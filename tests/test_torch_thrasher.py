@@ -346,3 +346,17 @@ def test_post_cycle_fsck_waits_for_the_rebooted_daemon(monkeypatch,
     t._post_cycle_fsck("/nonexistent/osd.1.asok", 1)
     assert t.failures == ["wait-for-state timed out: post-cycle fsck on "
                           "osd.1"] and t.fsck_errors_post_cycle == 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 2024])
+def test_random_bytes_equals_the_per_byte_generator(seed):
+    """The payload generator draws every byte at once: the same bytes
+    as ``bytes(rng.getrandbits(8) for _ in range(n))`` and the same
+    generator state after it, at 0, 1, 7 and 4 MiB; 0 draws nothing."""
+    import random
+    for n in (0, 1, 7, 4 << 20):
+        old, new = random.Random(seed), random.Random(seed)
+        want = bytes(old.getrandbits(8) for _ in range(n))
+        got = port_thrasher.random_bytes(new, n)
+        assert got == want, n
+        assert new.getstate() == old.getstate(), n
