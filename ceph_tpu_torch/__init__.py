@@ -19,7 +19,11 @@ metrics_history,cluster_stats}.py``, ``client/{rados,striper,
 remote_ioctx}.py`` and ``native_bridge.py``, which builds
 ``native/*.cpp`` into ``build/native/``).  The process cluster
 (``tools/vstart.py``, ``cluster/daemon.py``) runs its daemons on the CPU
-and its EC primary, ``client/remote.py``, on the card.
+and its EC primary, ``client/remote.py``, on the card.  The gateway tier
+(``rgw/``, ``cluster/dr_drill.py``) and the metadata servers
+(``fs/{mds,mdsmap,multimds}.py``) are host code over those clients: their
+erasure-coded objects run on K1, their card-attached wire clients verify
+frames with K3's crc leg.
 
 Device policy: entry points run on the card.  The package default device
 is ``cuda``; a caller asks for the CPU explicitly, with

@@ -1,8 +1,6 @@
-"""File-system layer: the journaler (src/journal/ role).
-
-Port of ``ceph_tpu/fs/__init__.py``.  The reference's package also
-exports the metadata server slice (``mds``, ``mdsmap``, ``multimds``);
-those modules are not ported yet, so this namespace holds only
-``Journaler``.
-"""
+"""File-system layer: journaler + metadata server slice (src/journal/
++ src/mds/ roles)."""
 from .journaler import Journaler  # noqa: F401
+from .mds import MDS, CephFSClient, ForwardError, FSError  # noqa: F401
+from .mdsmap import MDSMap  # noqa: F401
+from .multimds import MDBalancer, MDSCluster  # noqa: F401

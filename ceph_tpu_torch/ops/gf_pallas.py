@@ -51,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 import zlib
 
 import numpy as np
@@ -62,6 +63,8 @@ from .gf_jax import bitplane_matmul as _bitplane_matmul_torch
 launches = 0            # K2
 fused_launches = 0      # K3
 plain_runs = 0
+# the counts are bumped from every client thread that launches
+_count_lock = threading.Lock()
 
 
 # ------------------------------------------------------------ host tables --
@@ -180,7 +183,8 @@ def _launch(bm: np.ndarray, d3: torch.Tensor, m: int) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc} "
                            f"(data {tuple(d3.shape)}, m {m})")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 
@@ -402,7 +406,8 @@ def _launch_fused(bm: np.ndarray, pool: torch.Tensor):
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc} "
                            f"(pool {tuple(pool.shape)}, m {m})")
-    fused_launches += 1
+    with _count_lock:
+        fused_launches += 1
     return parity, dcrc, pcrc
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -38,6 +39,8 @@ from .. import resolve_device
 
 launches = 0
 plain_runs = 0
+# the counts are bumped from every client thread that launches
+_count_lock = threading.Lock()
 
 
 # ------------------------------------------------------------- conversions --
@@ -119,7 +122,8 @@ def _launch(m3: torch.Tensor, w3: torch.Tensor,
         raise RuntimeError(
             f"K1 launch failed: cudaError {rc} "
             f"(masks {tuple(m3.shape)}, words {tuple(w3.shape)})")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 

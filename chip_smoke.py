@@ -114,11 +114,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      RS(8,3) bitsliced pool (pg_num 512), about 100 PG replicas an OSD,
      4 MiB objects: (a) two ``Thrasher`` soaks on the card (seed 0
      kill/revive, seed 1 netsplit; 32 objects a pool, 8 cycles), every
-     invariant held; (b) a 256 MiB RBD image in the EC pool written whole
+     invariant held; (b) a 64 MiB RBD image in the EC pool written whole
      in 4 MiB writes, 256 seeded 4 KiB random writes, snapshot, protect,
      clone, flatten, an unaligned shrink, every byte of image and clone
      against a host oracle; rbd-mirror of a 64 MiB journaled image onto a
-     second ClusterSim on the card (16 x 4 MiB and 64 x 4 KiB writes,
+     second ClusterSim on the card (4 x 4 MiB and 64 x 4 KiB writes,
      replay, a second replay and a trim applying nothing); neorados's 64
      concurrent 4 MiB writes and reads; (c) ``calc_pg_upmaps`` on the
      replicated pool through the card's mapper and the balancer advisor,
@@ -139,10 +139,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      phase 4's; (e) ``multihost``'s all_reduce and all-gather on CUDA
      tensors at the rebuild's output shape in a one-rank NCCL group the
      smoke starts and destroys.  Each kernel's time per cell is printed
-     beside the unsharded launch, then the whole smoke's wall time.
+     beside the unsharded launch;
+ 13. the gateway tier and CephFS on phase 11's stack: (a) ``RGWGateway``
+     on a ``Rados`` ioctx of the RS(8,3) pool (4 KiB stripe unit, HBM
+     staging), a bucket of 8 index shards: 1,024 objects of phase 7's
+     zipf(1.3) size mix put, a 64 MiB multipart object in 8 MiB parts,
+     listings by prefix, marker and delimiter, every object read back
+     with its ETag the MD5 of its bytes, 3 OSDs killed and every object
+     read degraded, out, ``recover_all`` and every object read again, an
+     online reshard from 8 to 16 shards while 64 objects are written, and
+     64 PUT/GET pairs through each of the S3 and Swift frontends on
+     localhost over the same index; (b) an ``MDSCluster`` of 2 ranks,
+     metadata on the 3-replica pool and data on the RS(8,3) pool in the
+     default ``FileLayout`` (4 MiB objects): 1,024 small files under 16
+     directories, 64 files of 4 MiB and one of 256 MiB written and read
+     back, a rename across ranks, ``MDBalancer`` moving the hot subtree,
+     rank 1 restarted from its journal, 3 OSDs killed and every file
+     read again; (c) ``run_serve(ServeConfig(seed=0))``, S3Serve's stock
+     profile over 4 OSD daemons on the CPU with the tenants' handles on
+     the card, its gate green and no full block crc'd on the host here,
+     then ``--starve`` red with the gold tenant's share breach; (d)
+     ``run_drill(DrillConfig(seed=0))`` with two sim zones on the card
+     green, and red with ``lose_bilog``.  Then the whole smoke's wall
+     time.
 
 Around each path of phases 3, 6, 7, each pool of phase 8, each step of
-phases 10 and 11 and each run of phase 12 the kernels' launch counts are
+phases 10, 11 and 13 and each run of phase 12 the kernels' launch counts are
 set to 0 just before and read just after: K1's must equal the bitsliced
 paths' dispatches (phase 11: the ec.jax dispatches plus the rebuild
 dispatches; phase 12: those of the plane-off run, and the cells times
@@ -151,7 +173,9 @@ codec dispatches (``bitmatrix_codec``'s counts), K2's the byte pool's
 and the layered pools' ``ec.jax`` encode + decode dispatches (phase 12:
 one a cell of each distributed step), K3's the ZeroWire path's encode
 launches plus its device crc dispatches (phase 10: the device crc
-dispatches alone; phase 12: one a cell); the host pools launch nothing,
+dispatches alone; phase 12: one a cell; phase 13: its device crc
+dispatches, while phase 13's K1 launches equal its ec.jax plus rebuild
+dispatches); the host pools launch nothing,
 and no plain version may run.  The placement phases 4 and 5 and phase
 12's sweep run no kernel; phase 5 and phase 12's sweep fail if a count
 moves.  Earlier lines print
@@ -403,6 +427,22 @@ def kernel_checks(device, shapes) -> dict:
     return errs
 
 
+def held_shapes(pairs) -> dict:
+    """{(C, W, R): the largest B held} of checked (operand shape, output
+    rows) pairs: a launch "B,C,W->R" is held when a check ran its C, W
+    and R at a batch no smaller."""
+    out = {}
+    for (B, C, W), R in pairs:
+        out[(C, W, R)] = max(out.get((C, W, R), 0), B)
+    return out
+
+
+def shape_held(key: str, held: dict) -> bool:
+    dims, rows = key.split("->")
+    B, C, W = map(int, dims.split(","))
+    return B <= held.get((C, W, int(rows)), 0)
+
+
 def k2_shapes(device, gen):
     """K2's main-path shapes: the byte pool's per-object put [4, 8, 131072]
     (a 4 MiB object is 4 stripes of 8 x 128 KiB), the batched encode
@@ -461,8 +501,9 @@ def k1_shapes(device, codec, gen):
     (shared masks), a 3-erasure decode (one signature), a rebuild
     [512, 88, 4096] with its own full-width masks per stripe, a ragged
     W = 4095, the process cluster's encodes and 2-erasure decode at 1 MiB
-    chunks, and phase 11's encodes and 1- and 2-erasure decodes at 4 KiB
-    stripe units."""
+    chunks, phase 11's encodes and 1- and 2-erasure decodes at 4 KiB
+    stripe units, and phase 13's encodes, 1- to 3-erasure decodes and
+    rebuilds at 4 KiB stripe units."""
     n = K + M
     enc_masks = torch.as_tensor(
         gf2.bitmatrix_masks(gf.gf8_bitmatrix(codec.parity)), device=device)
@@ -509,7 +550,23 @@ def k1_shapes(device, codec, gen):
         "p11_decode_1": (dec1, random_words((128, 8 * K, 128), gen, device)),
         "p11_decode_2": (dec2, random_words((128, 8 * K, 128), gen,
                                             device))})
-    return {**pc, **p11,
+    # phase 13's shapes, also at 4 KiB stripe units: the S3 and CephFS
+    # puts encode 1 to 32 stripes (the zipf objects of up to 1 MiB and
+    # the small files), an 8 MiB multipart part 256 and a 4 MiB file
+    # object 128; degraded gets decode one, two or three erasures of
+    # 1 to 256 stripes; recover_all rebuilds [B, 88, 128] stacks, each
+    # stripe with its own full-width masks
+    p13 = {f"p13_encode_{B}": (enc_masks, random_words((B, 8 * K, 128),
+                                                        gen, device))
+           for B in (3, 5, 17, 29, 32, 256)}
+    for e, masks in ((1, dec1), (2, dec2), (3, dec_masks)):
+        for B in (1, 5, 32, 256):
+            p13[f"p13_decode_{e}_{B}"] = (masks, random_words(
+                (B, 8 * K, 128), gen, device))
+    for B in (1, 2, 7, 32, 256):
+        p13[f"p13_rebuild_{B}"] = (rb_masks[:B], random_words(
+            (B, 8 * n, 128), gen, device))
+    return {**pc, **p11, **p13,
         "encode": (enc_masks, random_words((512, 8 * K, 4096), gen,
                                            device)),
         "decode": (dec_masks, random_words((32, 8 * K, 4096), gen,
@@ -1191,6 +1248,9 @@ def k3_shapes(device, gen, main_pool: np.ndarray):
                     ("pc_reply", blocks)):
         shapes[f"crc_leg_{name}"] = (np.zeros((0, 8), dtype=np.uint8),
                                      data((G, 1, 4096)))
+    # phase 13's S3Serve frames: one 4 KiB block a frame
+    shapes["crc_leg_p13_frame"] = (np.zeros((0, 8), dtype=np.uint8),
+                                   data((1, 1, 4096)))
     return shapes
 
 
@@ -1849,6 +1909,27 @@ def pc_words(data: bytes) -> torch.Tensor:
     return torch.from_numpy(buf.view(np.int32).reshape(S, K, PC_SU // 4))
 
 
+@contextlib.contextmanager
+def host_csum_scans(note):
+    """Calls ``note(site, nbytes)`` at every host crc scan of a full 4 KiB
+    block or more that this process makes while the block runs
+    (``Csums.scan``; the daemons' own scans are in their processes)."""
+    from ceph_tpu_torch.common import crcutil
+    scan_descriptor = crcutil.Csums.__dict__["scan"]
+    scan = crcutil.Csums.scan
+
+    def observed(cls, buf, block=crcutil.CSUM_BLOCK, site="send"):
+        n = len(crcutil.as_u8(buf))
+        if n >= 4096:
+            note(site, n)
+        return scan(buf, block=block, site=site)
+    crcutil.Csums.scan = classmethod(observed)
+    try:
+        yield
+    finally:
+        crcutil.Csums.scan = scan_descriptor
+
+
 def process_cluster(device, card: str) -> dict:
     """Phase 10: the process cluster.  vstart starts one mon and 12 OSD
     daemon processes asked for the CPU; a RemoteCluster here, its codec
@@ -1883,8 +1964,7 @@ def process_cluster(device, card: str) -> dict:
     # block or more, and bulk frame segments sent without folded csums
     host_payload = {"scans": [], "unfolded_sends": []}
     step = [None]
-    note_scan, csums_scan = crcutil.note_scan, crcutil.Csums.scan
-    scan_descriptor = crcutil.Csums.__dict__["scan"]
+    note_scan = crcutil.note_scan
     frame_parts = wire._frame_parts
 
     def seen(kernel, key):
@@ -1898,13 +1978,6 @@ def process_cluster(device, card: str) -> dict:
             c["bytes"] += int(nbytes)
             c["max"] = max(c["max"], int(nbytes))
         return note_scan(nbytes, site)
-
-    def observed_csums_scan(cls, buf, block=crcutil.CSUM_BLOCK,
-                            site="send"):
-        n = len(crcutil.as_u8(buf))
-        if n >= 4096:
-            host_payload["scans"].append((step[0], site, n))
-        return csums_scan(buf, block=block, site=site)
 
     def observed_frame_parts(env_type, env_id, shard, parts, session_key,
                              mode, data_csums=None):
@@ -1982,8 +2055,9 @@ def process_cluster(device, card: str) -> dict:
     daemon_pids = {n: p.pid for n, p in v.procs.items() if n != "mon"}
     undo = contextlib.ExitStack()
     undo.enter_context(launch_shapes(seen))
+    undo.enter_context(host_csum_scans(
+        lambda site, n: host_payload["scans"].append((step[0], site, n))))
     crcutil.note_scan = observed_scan
-    crcutil.Csums.scan = classmethod(observed_csums_scan)
     wire._frame_parts = observed_frame_parts
     try:
         rc = RemoteCluster(PC_DIR, ec_profiles={"p": dict(PC_PROFILE)})
@@ -2129,7 +2203,6 @@ def process_cluster(device, card: str) -> dict:
     finally:
         undo.close()
         crcutil.note_scan = note_scan
-        crcutil.Csums.scan = scan_descriptor
         wire._frame_parts = frame_parts
         v.stop()
         shutil.rmtree(PC_DIR, ignore_errors=True)
@@ -2216,11 +2289,13 @@ def pc_csum_timing(device, card: str) -> dict:
 P11_REP_PGS = 2048
 P11_EC_PGS = 512
 P11_OBJ = 4 << 20             # RADOS's and RBD's object size (order 22)
-P11_IMAGE = 1 << 30          # 256 objects of 4 MiB
+P11_IMAGE = 64 << 20         # 16 objects of 4 MiB (1 GiB until phase 13
+#                              came, then 256 MiB; cut to keep the smoke
+#                              in its time)
 P11_SHRINK = P11_IMAGE - 12345
 P11_RANDOM_WRITES = 256       # 4 KiB each
-P11_MIRROR_IMAGE = 256 << 20
-P11_MIRROR_BIG, P11_MIRROR_SMALL = 16, 64
+P11_MIRROR_IMAGE = 64 << 20  # 256 MiB and 16 big writes until phase 13
+P11_MIRROR_BIG, P11_MIRROR_SMALL = 4, 64
 P11_NEO_OBJECTS = 64
 P11_CYCLES = 8
 P11_PROFILE = {"plugin": "jax", "k": str(K), "m": str(M),
@@ -2264,43 +2339,69 @@ def p11_stack(device):
     return sim, Monitor(sim.osdmap, failure_reports_needed=2)
 
 
-def p11_step(device, label: str, fn, steps: dict):
-    """Run one step of phase 11 with the kernels' counts set to 0 just
-    before and read just after (K1's launches by shape); records the
-    step's wall time and accounting in ``steps`` and returns ``fn()``'s
-    result."""
+def step_counts() -> dict:
+    ec = perf("ec.jax").dump()
+    zero = perf("wire.zero").dump()
+    return {"k1": xor_kernel.launches, "k2": gf_pallas.launches,
+            "k3": gf_pallas.fused_launches,
+            "ec_dispatches": ec.get("encode_dispatches", 0) +
+            ec.get("decode_dispatches", 0),
+            "rebuild_dispatches": simulator.rebuild_dispatches,
+            "device_crc_dispatches": zero.get("device_crc_dispatches", 0),
+            "device_crc_bytes": zero.get("device_crc_bytes", 0),
+            "plain": xor_kernel.plain_runs + gf_pallas.plain_runs +
+            crc32_gf2.plain_runs}
+
+
+def check_counts(where: str, d: dict) -> None:
+    """No plain version ran, K2 never launched, K1 launched once per
+    ec.jax and rebuild dispatch, K3 once per device crc dispatch."""
+    if d["plain"]:
+        fail(f"{where}: a plain version ran {d['plain']} times")
+    if d["k2"]:
+        fail(f"{where}: K2 launched {d['k2']} times on the K1 path")
+    if d["k1"] != d["ec_dispatches"] + d["rebuild_dispatches"]:
+        fail(f"{where}: K1 launched {d['k1']} times; the step made "
+             f"{d['ec_dispatches']} ec.jax and "
+             f"{d['rebuild_dispatches']} rebuild dispatches")
+    if d["k3"] != d["device_crc_dispatches"]:
+        fail(f"{where}: K3 launched {d['k3']} times for "
+             f"{d['device_crc_dispatches']} device crc dispatches")
+
+
+def counted_step(device, phase: int, label: str, fn, steps: dict,
+                 card: str):
+    """One step of phase 11 or 13: the kernels' counts set to 0 just
+    before it and read just after (launches by kernel and shape), its
+    wall time printed, the counts checked (``check_counts``); returns
+    ``fn()``'s result."""
     shapes = {}
+    lock = threading.Lock()
 
     def seen(kernel, key):
-        if kernel == "k1":
-            shapes[key] = shapes.get(key, 0) + 1
-
-    def snap():
-        return counters() + (crc32_gf2.plain_runs,)
+        with lock:
+            h = shapes.setdefault(kernel, {})
+            h[key] = h.get(key, 0) + 1
 
     sync(device)
     with launch_shapes(seen):
-        c0 = snap()
+        c0 = step_counts()
         t0 = time.perf_counter()
         out = fn()
         sync(device)
         wall = time.perf_counter() - t0
-    _, _, p1, p2, disp, rebuild, p3 = (b - a for a, b in zip(c0, snap()))
-    k1, k2, k3 = xor_kernel.launches, gf_pallas.launches, \
-        gf_pallas.fused_launches
-    steps[label] = {"s": wall, "k1_launches": k1, "ec_dispatches": disp,
-                    "rebuild_dispatches": rebuild, "k1_shapes": shapes}
-    if p1 or p2 or p3:
-        fail(f"phase 11 {label}: a plain version ran ({p1}, {p2}, {p3})")
-    if k2 or k3:
-        fail(f"phase 11 {label}: K2 launched {k2}, K3 {k3} on the K1 path")
-    if k1 != disp + rebuild:
-        fail(f"phase 11 {label}: K1 launched {k1} times; the step made "
-             f"{disp} ec.jax and {rebuild} rebuild dispatches")
+    d = {k: v - c0[k] for k, v in step_counts().items()}
+    steps[label] = {"s": wall, **d, "launch_shapes": shapes}
+    emit({"phase": f"p{phase}_step", "step": label, "s": wall,
+          "k1": d["k1"], "k3": d["k3"], "ec_dispatches": d["ec_dispatches"],
+          "rebuild_dispatches": d["rebuild_dispatches"],
+          "device_crc_dispatches": d["device_crc_dispatches"],
+          "gpu": card})
+    check_counts(f"phase {phase} {label}", d)
     return out
 
 
-def p11_thrash(device, seed: int, netsplit: bool) -> dict:
+def p11_thrash(device, card: str, seed: int, netsplit: bool) -> dict:
     """11a: one seeded Thrasher soak over both pools on the card; every
     invariant must hold."""
     from ceph_tpu_torch.cluster.thrasher import (NETSPLIT_FAULTPOINTS,
@@ -2330,7 +2431,7 @@ def p11_thrash(device, seed: int, netsplit: bool) -> dict:
     sync(device)
     torch.cuda.reset_peak_memory_stats()
     try:
-        report = p11_step(device, label, thr.run, steps)
+        report = counted_step(device, 11, label, thr.run, steps, card)
     finally:
         sim.shutdown()
         faults.reset()
@@ -2338,22 +2439,22 @@ def p11_thrash(device, seed: int, netsplit: bool) -> dict:
         fail(f"phase 11 thrash ({label}, seed {seed}): "
              f"{report['failures']}")
     st = steps[label]
-    if st["k1_launches"] == 0:
+    if st["k1"] == 0:
         fail(f"phase 11 thrash ({label}): K1 never launched")
     return {"soak": label, "seed": seed, "cycles": cfg.cycles,
             "objects": cfg.objects, "object_bytes": cfg.object_size,
             "wall_s": st["s"], "payloads": payloads["n"],
             "payload_generation_s": payloads["s"],
             "ticks_to_health_ok": report["invariants"]["health_ticks"],
-            "k1_launches": st["k1_launches"],
+            "k1_launches": st["k1"],
             "ec_dispatches": st["ec_dispatches"],
             "rebuild_dispatches": st["rebuild_dispatches"],
-            "k1_launch_shapes": st["k1_shapes"],
+            "k1_launch_shapes": st["launch_shapes"].get("k1", {}),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "report": report}
 
 
-def p11_block_tier(device) -> dict:
+def p11_block_tier(device, card: str) -> dict:
     """11b: an RBD image in the RS(8,3) pool (write whole, seeded random
     4 KiB writes, snapshot, protect, clone, flatten, unaligned shrink,
     every byte of image and clone against a host oracle); rbd-mirror of a
@@ -2385,7 +2486,8 @@ def p11_block_tier(device) -> dict:
         def write_whole():
             for off in range(0, P11_IMAGE, P11_OBJ):
                 img.write(off, bytes(oracle[off:off + P11_OBJ]))
-        p11_step(device, "rbd_write_image", write_whole, steps)
+        counted_step(device, 11, "rbd_write_image", write_whole, steps,
+                     card)
         offs = rng.integers(0, P11_IMAGE // 4096, P11_RANDOM_WRITES) * 4096
         blocks = [rng.integers(0, 256, 4096, dtype=np.uint8).tobytes()
                   for _ in offs]
@@ -2394,23 +2496,24 @@ def p11_block_tier(device) -> dict:
             for off, blk in zip(offs, blocks):
                 img.write(int(off), blk)
                 oracle[int(off):int(off) + 4096] = blk
-        p11_step(device, "rbd_random_4k_writes", random_writes, steps)
+        counted_step(device, 11, "rbd_random_4k_writes", random_writes,
+                     steps, card)
 
         def snap_clone_flatten():
             img.snap_create("s1")
             img.protect_snap("s1")
             rbd.clone("vol", "s1", "clone")
             Image(io_a, "clone").flatten()
-        p11_step(device, "rbd_snap_protect_clone_flatten",
-                 snap_clone_flatten, steps)
-        p11_step(device, "rbd_unaligned_shrink",
-                 lambda: img.resize(P11_SHRINK), steps)
+        counted_step(device, 11, "rbd_snap_protect_clone_flatten",
+                     snap_clone_flatten, steps, card)
+        counted_step(device, 11, "rbd_unaligned_shrink",
+                     lambda: img.resize(P11_SHRINK), steps, card)
 
         def read_back():
             return (Image(io_a, "vol").read(0, P11_IMAGE),
                     Image(io_a, "clone").read(0, P11_IMAGE))
-        got_img, got_clone = p11_step(device, "rbd_read_back", read_back,
-                                      steps)
+        got_img, got_clone = counted_step(device, 11, "rbd_read_back",
+                                          read_back, steps, card)
         if len(got_img) != P11_SHRINK or \
                 got_img != bytes(oracle[:P11_SHRINK]):
             fail("phase 11 rbd: the shrunk image differs from its oracle")
@@ -2436,9 +2539,11 @@ def p11_block_tier(device) -> dict:
             for off, data in big + small:
                 prim.write(off, data)
                 moracle[off:off + len(data)] = data
-        p11_step(device, "mirror_journaled_writes", journaled_writes, steps)
+        counted_step(device, 11, "mirror_journaled_writes",
+                     journaled_writes, steps, card)
         rep = MirrorReplayer(io_a, io_b, "mirror", peer="site-b")
-        applied = p11_step(device, "mirror_replay", rep.replay, steps)
+        applied = counted_step(device, 11, "mirror_replay", rep.replay,
+                               steps, card)
         sec = Image(io_b, "mirror").read(0, P11_MIRROR_IMAGE)
         if applied != P11_MIRROR_BIG + P11_MIRROR_SMALL or \
                 sec != bytes(moracle) or \
@@ -2467,10 +2572,10 @@ def p11_block_tier(device) -> dict:
                     return await asyncio.gather(*[
                         io.read(f"neo{i}") for i in range(len(blobs))])
             return asyncio.run(flow())
-        p11_step(device, "neorados_write_full",
-                 lambda: neorados("write"), steps)
-        got = p11_step(device, "neorados_read", lambda: neorados("read"),
-                       steps)
+        counted_step(device, 11, "neorados_write_full",
+                     lambda: neorados("write"), steps, card)
+        got = counted_step(device, 11, "neorados_read",
+                           lambda: neorados("read"), steps, card)
         if list(got) != blobs:
             fail("phase 11 neorados: a read differs from its write")
         rados_a.shutdown()
@@ -2483,7 +2588,7 @@ def p11_block_tier(device) -> dict:
             "mirror_entries_applied": applied,
             "mirror_objects_trimmed": trimmed,
             "neorados_objects": P11_NEO_OBJECTS, "steps": steps,
-            "k1_launches": sum(s["k1_launches"] for s in steps.values()),
+            "k1_launches": sum(s["k1"] for s in steps.values()),
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
@@ -2511,7 +2616,7 @@ class P11Stats:
         return self.df
 
 
-def p11_balancer(device) -> dict:
+def p11_balancer(device, card: str) -> dict:
     """11c: calc_pg_upmaps on the 3-replica pool through the card's
     mapper, and the balancer advisor's dry run; both against the same
     calls on a CPU copy of the map."""
@@ -2528,13 +2633,14 @@ def p11_balancer(device) -> dict:
     steps = {}
     f0 = pc.dump().get("fallback_lanes", 0)
     e0 = om.epoch
-    report = p11_step(device, "balancer_evaluate",
-                      lambda: evaluate(om, stats, max_moves=8, pool=1),
-                      steps)
+    report = counted_step(device, 11, "balancer_evaluate",
+                          lambda: evaluate(om, stats, max_moves=8, pool=1),
+                          steps, card)
     if om.epoch != e0 or report["epoch"] != e0:
         fail("phase 11 balancer: the advisor moved the map's epoch")
-    res = p11_step(device, "calc_pg_upmaps",
-                   lambda: calc_pg_upmaps(om, pool_ids=[1]), steps)
+    res = counted_step(device, 11, "calc_pg_upmaps",
+                       lambda: calc_pg_upmaps(om, pool_ids=[1]), steps,
+                       card)
     fallback = pc.dump().get("fallback_lanes", 0) - f0
     want_report = evaluate(cpu, stats, max_moves=8, pool=1)
     want = calc_pg_upmaps(cpu, pool_ids=[1])
@@ -2820,6 +2926,413 @@ def p12_nccl(device, card: str, gen) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 13 --
+# The gateway tier and CephFS on phase 11's stack (32 hosts x 4 OSDs; a
+# 3-replica pool of 2,048 PGs and an RS(8,3) bitsliced pool of 512 PGs
+# at Ceph's default 4 KiB stripe unit, on the HBM staging tier), then
+# S3Serve at its stock profile and the DR drill.
+P13_OBJECTS = 1024            # phase 7's S3Serve size mix, zipf(1.3)
+P13_SHARDS = 8                # S3Serve's ServeConfig.index_shards
+P13_RESHARD = 16
+P13_LIVE_PUTS = 64            # written while the bucket reshards
+P13_MP_BYTES = 64 << 20
+P13_MP_PART = 8 << 20         # the S3 CLI's default part size
+P13_PAIRS = 64                # PUT/GET pairs through each frontend
+P13_KILLED = 3
+P13_FS_DIRS = 16
+P13_FS_SMALL = 1024           # small files, 1 B to 16 KiB
+P13_FS_MID = 64               # files of one 4 MiB object each
+P13_FS_MID_BYTES = 4 << 20
+P13_FS_BIG = 256 << 20        # one file of 64 objects
+P13_HOT_READS = 48            # reads that make one subtree the hottest
+
+
+def p13_kill(sim, mon, victims) -> None:
+    """The victims die and their peers' reports mark them down in the map
+    the clients follow (the heartbeat pipeline's job, done at once)."""
+    for v in victims:
+        sim.fail_osd(v)
+    for v in victims:
+        for reporter in range(len(sim.osds)):
+            if reporter not in victims and mon.report_failure(v, reporter):
+                break
+        if mon.osdmap.is_up(v):
+            fail(f"phase 13: osd.{v} was not marked down")
+
+
+def p13_out(mon, victims) -> None:
+    inc = mon.next_incremental()
+    for v in victims:
+        inc.new_weight[v] = 0
+    if not mon.commit_incremental(inc):
+        fail("phase 13: the mon did not commit the victims' out")
+
+
+def p13_payloads(n: int, seed: int):
+    """``n`` payloads of phase 7's size mix: zipf(1.3) x 1 KiB, clipped to
+    [1 B, 1 MiB]."""
+    rng = np.random.default_rng(seed)
+    raw = rng.zipf(1.3, size=n).astype(np.float64)
+    sizes = np.clip((raw * 1024).astype(np.int64), 1, 1 << 20)
+    return [rng.integers(0, 256, int(L), dtype=np.uint8).tobytes()
+            for L in sizes]
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"",
+          headers=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request(method, path, body=body, headers=headers or {})
+    r = conn.getresponse()
+    data = r.read()
+    etag = r.getheader("ETag")
+    conn.close()
+    return r.status, (etag or "").strip('"'), data
+
+
+def p13_s3(device, card: str) -> dict:
+    """(a) S3 over the RS(8,3) bucket pool on the card."""
+    import hashlib
+
+    from ceph_tpu_torch.client.rados import Rados
+    from ceph_tpu_torch.rgw.gateway import RGWGateway
+    from ceph_tpu_torch.rgw.http_frontend import S3Frontend
+    from ceph_tpu_torch.rgw.swift_frontend import SwiftFrontend
+    steps = {}
+    t_gen = time.perf_counter()
+    datas = p13_payloads(P13_OBJECTS, SEED + 13)
+    keys = [f"obj/{i % 16:02d}/{i:05d}" for i in range(P13_OBJECTS)]
+    objs = dict(zip(keys, datas))
+    mp_rng = np.random.default_rng(SEED + 14)
+    parts = [mp_rng.integers(0, 256, P13_MP_PART, dtype=np.uint8).tobytes()
+             for _ in range(P13_MP_BYTES // P13_MP_PART)]
+    gen_s = time.perf_counter() - t_gen
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in objs.items()}
+    sim, mon = p11_stack(device)
+    try:
+        gw = RGWGateway(Rados(sim, mon).connect().open_ioctx("ec"))
+        b = gw.create_bucket("s3", num_shards=P13_SHARDS)
+
+        etags = counted_step(device, 13, "s3_put", lambda: [
+            b.put_object(k, v) for k, v in objs.items()], steps, card)
+        if etags != [md5[k] for k in keys]:
+            fail("phase 13 s3: a put's ETag is not the MD5 of its bytes")
+
+        def multipart():
+            uid = b.initiate_multipart("mp/big.bin")
+            for n, part in enumerate(parts, 1):
+                b.upload_part(uid, n, part)
+            return b.complete_multipart(uid, list(range(1, len(parts) + 1)))
+        mp_etag = counted_step(device, 13, "s3_multipart", multipart, steps, card)
+        if not mp_etag.endswith(f"-{len(parts)}"):
+            fail(f"phase 13 s3: multipart ETag {mp_etag}")
+        objs["mp/big.bin"] = b"".join(parts)
+        del parts
+
+        def listing():
+            top = b.list_objects(delimiter="/")
+            by_dir = b.list_objects(prefix="obj/", delimiter="/")
+            one = b.list_objects(prefix="obj/05/", max_keys=100000)
+            pages, marker = [], ""
+            while True:
+                r = b.list_objects(marker=marker, max_keys=100)
+                pages += [c["key"] for c in r["contents"]]
+                if not r["is_truncated"]:
+                    return top, by_dir, one, pages
+                marker = r["contents"][-1]["key"]
+        top, by_dir, one, pages = counted_step(device, 13, "s3_list", listing,
+                                           steps, card)
+        if top["common_prefixes"] != ["mp/", "obj/"] or top["contents"] or \
+                by_dir["common_prefixes"] != sorted(
+                    {k[:7] for k in keys}) or \
+                [c["key"] for c in one["contents"]] != sorted(
+                    k for k in keys if k.startswith("obj/05/")) or \
+                pages != sorted(objs):
+            fail("phase 13 s3: a listing differs from the keys written")
+
+        def get_all(label):
+            bad = []
+            for k, v in objs.items():
+                data, ent = b.get_object(k)
+                if data != v or ("mp" not in ent and
+                                 ent["etag"] != hashlib.md5(data)
+                                 .hexdigest()):
+                    bad.append(k)
+            if bad:
+                fail(f"phase 13 s3 {label}: {len(bad)} objects differ, "
+                     f"first {bad[:4]}")
+            return len(objs)
+        counted_step(device, 13, "s3_get", lambda: get_all("get"), steps, card)
+        pool = sim.osdmap.pools[2]
+        up = sim.pg_up(pool, sim.object_pg(pool,
+                                           b._data_oid(keys[0], "")))
+        victims = [o for o in up if o >= 0][:P13_KILLED]
+        p13_kill(sim, mon, victims)
+        counted_step(device, 13, "s3_degraded_get", lambda: get_all("degraded get"),
+                 steps, card)
+        p13_out(mon, victims)
+        rec = counted_step(device, 13, "s3_recover_all", lambda: sim.recover_all(2),
+                       steps, card)
+        if rec.get("shards_rebuilt", 0) <= 0:
+            fail(f"phase 13 s3: recovery rebuilt nothing: {rec}")
+        counted_step(device, 13, "s3_get_after_recovery",
+                 lambda: get_all("get after recovery"), steps, card)
+
+        live = {f"live/{i:03d}": v for i, v in enumerate(
+            p13_payloads(P13_LIVE_PUTS, SEED + 15))}
+
+        def reshard_while_writing():
+            errs = []
+
+            def writer():
+                try:
+                    for k, v in live.items():
+                        gw.bucket("s3").put_object(k, v)
+                except Exception as e:      # noqa: BLE001 — reported
+                    errs.append(repr(e))
+            th = threading.Thread(target=writer, name="p13-live-writer")
+            th.start()
+            st = gw.reshard_bucket("s3", P13_RESHARD)
+            th.join()
+            return st, errs
+        st, errs = counted_step(device, 13, "s3_reshard", reshard_while_writing,
+                            steps, card)
+        objs.update(live)
+        nb = gw.bucket("s3")
+        listed = []
+        marker = ""
+        while True:
+            r = nb.list_objects(marker=marker, max_keys=1000)
+            listed += [c["key"] for c in r["contents"]]
+            if not r["is_truncated"]:
+                break
+            marker = r["contents"][-1]["key"]
+        if errs or nb.num_shards() != P13_RESHARD or listed != sorted(objs) \
+                or any(nb.get_object(k)[0] != v for k, v in live.items()):
+            fail(f"phase 13 s3: the online reshard lost writes ({errs}, "
+                 f"{nb.num_shards()} shards, {len(listed)} keys listed)")
+
+        pair_rng = np.random.default_rng(SEED + 16)
+        s3fe, swift = S3Frontend(gw), SwiftFrontend(gw)
+        s3p, swp = s3fe.start(0), swift.start(0)
+        try:
+            def pairs(kind):
+                bad = []
+                for i in range(P13_PAIRS):
+                    body = pair_rng.integers(
+                        0, 256, int(pair_rng.integers(1, 1 << 17)),
+                        dtype=np.uint8).tobytes()
+                    if kind == "http":
+                        path = f"/s3/http/{i:03d}"
+                        st_put, etag, _ = _http(s3p, "PUT", path, body)
+                        st_get, etag2, got = _http(s3p, "GET", path)
+                        ok = (st_put, st_get) == (200, 200)
+                    else:
+                        path = f"/v1/AUTH_test/s3/swift/{i:03d}"
+                        st_put, etag, _ = _http(
+                            swp, "PUT", path, body,
+                            {"Content-Length": str(len(body))})
+                        st_get, etag2, got = _http(swp, "GET", path)
+                        ok = (st_put, st_get) == (201, 200)
+                    if not ok or got != body or etag != etag2 or \
+                            etag != hashlib.md5(body).hexdigest():
+                        bad.append((path, st_put, st_get))
+                    objs[path.split("/s3/", 1)[1]] = body
+                if bad:
+                    fail(f"phase 13 s3 {kind}: {bad[:4]}")
+                return P13_PAIRS
+            counted_step(device, 13, "s3_http_pairs", lambda: pairs("http"), steps,
+                     card)
+            counted_step(device, 13, "s3_swift_pairs", lambda: pairs("swift"), steps,
+                     card)
+        finally:
+            s3fe.stop()
+            swift.stop()
+        total = len(nb.list_objects(max_keys=100000)["contents"])
+        if total != len(objs):
+            fail(f"phase 13 s3: {total} keys listed, {len(objs)} written")
+        stored = sum(len(v) for v in objs.values())
+    finally:
+        sim.shutdown()
+    return {"objects": len(objs), "bytes": stored, "victims": victims,
+            "recover": rec, "reshard": st, "payload_generation_s": gen_s,
+            "steps": steps}
+
+
+def p13_cephfs(device, card: str) -> dict:
+    """(b) CephFS on the card: two MDS ranks, metadata on the 3-replica
+    pool, data on the RS(8,3) pool in the default layout."""
+    from ceph_tpu_torch.client.rados import Rados
+    from ceph_tpu_torch.cluster.striper import FileLayout
+    from ceph_tpu_torch.fs.mds import MDS
+    from ceph_tpu_torch.fs.multimds import MDBalancer, MDSCluster
+    steps = {}
+    t_gen = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    files = {}
+    for i in range(P13_FS_SMALL):
+        files[f"/d{i % P13_FS_DIRS:02d}/f{i:04d}"] = rng.integers(
+            0, 256, int(rng.integers(1, 16 << 10)), dtype=np.uint8).tobytes()
+    for i in range(P13_FS_MID):
+        files[f"/mid/m{i:02d}"] = rng.integers(
+            0, 256, P13_FS_MID_BYTES, dtype=np.uint8).tobytes()
+    files["/big/huge.bin"] = rng.integers(0, 256, P13_FS_BIG,
+                                          dtype=np.uint8).tobytes()
+    gen_s = time.perf_counter() - t_gen
+    layout = FileLayout()
+    if (layout.object_size, layout.stripe_unit, layout.stripe_count) != \
+            (4 << 20, 4 << 20, 1):
+        fail(f"phase 13 cephfs: the default layout is {layout}")
+    sim, mon = p11_stack(device)
+    try:
+        r = Rados(sim, mon).connect()
+        meta, data = r.open_ioctx("rep"), r.open_ioctx("ec")
+        c = MDSCluster(meta, data, n_ranks=2, layout=layout)
+        # the second half of the directories lives on rank 1
+        for d in range(P13_FS_DIRS):
+            c.mkdir(f"/d{d:02d}")
+            if d >= P13_FS_DIRS // 2:
+                c.migrate(f"/d{d:02d}", 1)
+        c.mkdir("/mid")
+        c.mkdir("/big")
+
+        def write_all():
+            for path, v in files.items():
+                c.create(path)
+                c.write_file(path, v)
+            return len(files)
+        counted_step(device, 13, "fs_write", write_all, steps, card)
+
+        def read_all(cl, label):
+            bad = [p for p, v in files.items() if cl.read_file(p) != v]
+            if bad:
+                fail(f"phase 13 cephfs {label}: {len(bad)} files differ, "
+                     f"first {bad[:4]}")
+            return len(files)
+        counted_step(device, 13, "fs_read", lambda: read_all(c, "read"), steps,
+                 card)
+
+        def rename_across():
+            src, dst = "/d00/f0000", f"/d{P13_FS_DIRS - 1:02d}/moved"
+            c.rename(src, dst)
+            files[dst] = files.pop(src)
+            return c.mdsmap.auth_rank(dst)
+        if counted_step(device, 13, "fs_rename", rename_across, steps, card) != 1:
+            fail("phase 13 cephfs: the renamed file is not on rank 1")
+
+        hot = "/d01"
+
+        def balance():
+            # rank 0 serves the hot subtree and two warm ones, rank 1
+            # nothing: moving the hot one is the move that evens them
+            c.load.clear()
+            for _ in range(P13_HOT_READS):
+                c.listdir(hot)
+            for warm in ("/d02", "/d03"):
+                for _ in range(P13_HOT_READS // 2):
+                    c.listdir(warm)
+            return MDBalancer(c, min_requests=16).rebalance()
+        moved = counted_step(device, 13, "fs_balance", balance, steps, card)
+        if (hot, 1) not in moved or c.mdsmap.auth_rank(hot) != 1:
+            fail(f"phase 13 cephfs: the balancer moved {moved}")
+
+        def restart_rank():
+            # rank 1 fails; a fresh MDS for rank 1 replays its journal
+            c.ranks[1] = MDS(meta, data, layout=layout, rank=1,
+                             mdsmap=c.mdsmap)
+            return sorted(c.listdir(f"/d{P13_FS_DIRS - 1:02d}"))
+        listed = counted_step(device, 13, "fs_restart_rank", restart_rank, steps,
+                          card)
+        if "moved" not in listed:
+            fail("phase 13 cephfs: the restarted rank lost the rename")
+        counted_step(device, 13, "fs_read_after_restart",
+                 lambda: read_all(c, "read after the restart"), steps, card)
+
+        pool = sim.osdmap.pools[2]
+        ino = c.stat("/big/huge.bin")["ino"]
+        up = sim.pg_up(pool, sim.object_pg(pool, f"{ino:016x}.00000000"))
+        victims = [o for o in up if o >= 0][:P13_KILLED]
+        p13_kill(sim, mon, victims)
+        counted_step(device, 13, "fs_degraded_read",
+                 lambda: read_all(c, "degraded read"), steps, card)
+        subtrees = c.subtree_map()
+        stored = sum(len(v) for v in files.values())
+    finally:
+        sim.shutdown()
+    return {"files": len(files), "bytes": stored, "victims": victims,
+            "subtrees": subtrees, "balancer_moved": moved,
+            "payload_generation_s": gen_s, "steps": steps}
+
+
+def p13_serve(device, card: str) -> dict:
+    """(c) S3Serve at its stock profile: 4 OSD daemons on the CPU, the
+    three default tenants, their handles on the card; the gate must
+    pass, and ``--starve`` must exit red with its breach report."""
+    import io
+
+    from ceph_tpu_torch.rgw import serving
+    steps, scans = {}, []
+    with host_csum_scans(lambda site, n: scans.append((site, n))):
+        report = counted_step(device, 13, "serve", lambda: serving.run_serve(
+            serving.ServeConfig(seed=0)), steps, card)
+    if not report["ok"]:
+        fail(f"phase 13 serve: the gate failed: {report['breaches']} "
+             f"{report['op_failures'][:4]}")
+    if scans:
+        fail(f"phase 13 serve: the client crc'd full blocks on the host: "
+             f"{scans[:8]}")
+    if steps["serve"]["k3"] == 0:
+        fail("phase 13 serve: no frame was verified on the card")
+    buf = io.StringIO()
+    rc = counted_step(device, 13, "serve_starve", lambda: serving.serve_main(
+        ["--starve", "--json"], out=buf), steps, card)
+    starved = json.loads(buf.getvalue())
+    breach = [b for b in starved["breaches"]
+              if b["tenant"] == "gold" and b["metric"] == "share"]
+    if rc != 1 or starved["ok"] or not breach:
+        fail(f"phase 13 serve --starve: rc {rc}, breaches "
+             f"{starved['breaches']}")
+    tenants = {name: {k: m[k] for k in ("ops", "share", "p50_s", "p99_s",
+                                          "p999_s", "errors", "ops_s")}
+               for name, m in report["tenants"].items()}
+    for name, m in tenants.items():
+        emit({"phase": "p13_serve_tenant", "tenant": name, **m,
+              "gpu": card})
+    return {"total_ops": report["total_ops"], "wall_s": report["wall_s"],
+            "ops_s": report["ops_s"], "tenants": tenants,
+            "dispatch_shares": report["scheduler"]["tenant_shares"],
+            "starved_breaches": starved["breaches"],
+            "starved_tenants": {n: {k: m[k] for k in ("ops", "share")}
+                                for n, m in starved["tenants"].items()},
+            "host_block_scans": len(scans), "steps": steps}
+
+
+def p13_drill(device, card: str) -> dict:
+    """(d) the DR drill with two sim zones on the card: green on seed 0,
+    red with one lost bilog entry."""
+    from ceph_tpu_torch.cluster.dr_drill import DrillConfig, run_drill
+    from ceph_tpu_torch.common import faults
+    steps = {}
+    try:
+        green = counted_step(device, 13, "drill", lambda: run_drill(
+            DrillConfig(seed=0)), steps, card)
+        red = counted_step(device, 13, "drill_lose_bilog", lambda: run_drill(
+            DrillConfig(seed=0, lose_bilog=True)), steps, card)
+    finally:
+        faults.reset()
+    if not green["ok"] or not (green["converged"] and green["resharded"]
+                               and green["sever_verified"]):
+        fail(f"phase 13 drill: not green: {green['failures']}")
+    if red["ok"] or not any("lost-canary" in f for f in red["failures"]):
+        fail(f"phase 13 drill --lose-bilog: not red on the lost key: "
+             f"{red['failures']}")
+    return {"lag_p99_s": green["lag_p99_s"],
+            "lag_samples": green["lag_samples"], "keys": green["keys"],
+            "agents": green["agents"],
+            "schedule_digest": green["schedule_digest"],
+            "lose_bilog_failures": red["failures"], "steps": steps}
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2930,7 +3443,13 @@ def main() -> int:
     errs2 = k2_checks(device, shapes2)
     zw_shards = zerowire_shards()
     zw_pool = ragged_fused.pack(zw_shards).pool
-    errs3 = k3_checks(device, k3_shapes(device, gen, zw_pool))
+    shapes3 = k3_shapes(device, gen, zw_pool)
+    errs3 = k3_checks(device, shapes3)
+    held = {"k1": held_shapes((w.shape, m.shape[-2])
+                              for m, w in shapes.values()),
+            "k3": held_shapes((p.shape, b.shape[0] // 8)
+                              for b, p in shapes3.values() if p.dim() == 3)}
+    del shapes3
     torch.cuda.empty_cache()
 
     # 3. the ECBackend data path, with the launch counts read around it
@@ -3027,17 +3546,17 @@ def main() -> int:
     # read around it inside)
     p11_k1 = 0
     for seed, netsplit in ((0, False), (1, True)):
-        th = p11_thrash(device, seed, netsplit)
+        th = p11_thrash(device, card, seed, netsplit)
         th["gpu"] = card
         emit({"phase": "thrash", **th})
         p11_k1 += th["k1_launches"]
         torch.cuda.empty_cache()
-    bt = p11_block_tier(device)
+    bt = p11_block_tier(device, card)
     bt["gpu"] = card
     emit({"phase": "block_tier", **bt})
     p11_k1 += bt["k1_launches"]
     torch.cuda.empty_cache()
-    bal = p11_balancer(device)
+    bal = p11_balancer(device, card)
     bal["gpu"] = card
     emit({"phase": "balancer", **bal})
 
@@ -3050,13 +3569,42 @@ def main() -> int:
     p12_sweep(device, card, sweep_up0)
     p12_nccl(device, card, gen)
     emit({"phase": "p12_total", "s": time.perf_counter() - t12, "gpu": card})
+    torch.cuda.empty_cache()
+
+    # 13. the gateway tier and CephFS on the card, S3Serve and the DR
+    # drill (each step's counts are read around it inside)
+    t13 = time.perf_counter()
+    p13 = {}
+    for name, leg in (("s3", p13_s3), ("cephfs", p13_cephfs),
+                      ("serve", p13_serve), ("drill", p13_drill)):
+        t0 = time.perf_counter()
+        p13[name] = leg(device, card)
+        emit({"phase": f"p13_{name}", "s": time.perf_counter() - t0,
+              **p13[name], "gpu": card})
+        torch.cuda.empty_cache()
+    p13_k1 = sum(st["k1"] for res in p13.values()
+                 for st in res["steps"].values())
+    p13_k3 = sum(st["k3"] for res in p13.values()
+                 for st in res["steps"].values())
+    emit({"phase": "p13_total", "s": time.perf_counter() - t13,
+          "k1_launches": p13_k1, "k3_launches": p13_k3, "gpu": card})
+    for kernel in ("k1", "k3"):
+        launched = {key for res in p13.values()
+                    for st in res["steps"].values()
+                    for key in st["launch_shapes"].get(kernel, {})}
+        loose = [key for key in sorted(launched)
+                 if not shape_held(key, held[kernel])]
+        if loose:
+            fail(f"phase 13 launched {kernel.upper()} at shapes phase 2 "
+                 f"did not hold against its plain version: {loose}")
     emit({"kernels": [
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
          "replaces": "ceph_tpu/ops/xor_kernel.py:76",
          "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
          plugin_k1 + pc["k1_launches"] + p11_k1 +
-         sum(c["k1_launches"] for c in p12c.values()) + p12s["k1_launches"],
+         sum(c["k1_launches"] for c in p12c.values()) + p12s["k1_launches"] +
+         p13_k1,
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -3074,7 +3622,7 @@ def main() -> int:
          "source": "ceph_tpu_torch/csrc/ragged_fused.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:83",
          "launches": zw["k3_launches"] + pc["k3_launches"] +
-         p12r["launches"],
+         p12r["launches"] + p13_k3,
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],

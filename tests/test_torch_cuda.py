@@ -912,3 +912,127 @@ def test_plane_of_four_cells_on_the_card_equals_unsharded_k1(card, stripes):
         assert dp.psum_probe() == (16 if not stripes else 14)
     assert put.device.type == reb.device.type == "cuda"
     assert torch.equal(put, want_put) and torch.equal(reb, want_reb)
+
+
+# ------------------------------------------------------------- gateway --
+
+def _bucket_on_rs83(device):
+    """A bucket whose data and index live in an RS(8,3) bitsliced pool
+    (12 hosts x 1 OSD, CHOOSELEAF_INDEP host, 4 KiB stripe unit) on
+    ``device``: objects put, listed, a multipart object, an OSD lost and
+    every object read degraded, out, ``recover_all`` and every object
+    read again.  -> (what it read, every object of the pool, K1 launches,
+    the ec.jax and rebuild dispatches)."""
+    from ceph_tpu_torch.client.rados import Rados
+    from ceph_tpu_torch.cluster import simulator
+    from ceph_tpu_torch.cluster.monitor import Monitor
+    from ceph_tpu_torch.cluster.osdmap import OSDMap, PGPool, POOL_ERASURE
+    from ceph_tpu_torch.common.perf_counters import perf
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        RULE_CHOOSELEAF_INDEP, RULE_EMIT, RULE_TAKE, Rule)
+    from ceph_tpu_torch.rgw.gateway import RGWGateway
+    cmap, root = build_flat_cluster(n_hosts=12, osds_per_host=1)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_INDEP, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    om = OSDMap(cmap, device=device)
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name="ec", type=POOL_ERASURE, size=11,
+                       pg_num=32, crush_rule=0, erasure_code_profile="p",
+                       stripe_unit=4096))
+    sim = simulator.ClusterSim(om, device=device)
+    sim.create_ec_profile("p", {"plugin": "jax", "k": "8", "m": "3",
+                                "layout": "bitsliced"})
+    mon = Monitor(sim.osdmap)
+    gw = RGWGateway(Rados(sim, mon).connect().open_ioctx("ec"))
+
+    def dispatches():
+        d = perf("ec.jax").dump()
+        return d.get("encode_dispatches", 0) + \
+            d.get("decode_dispatches", 0) + simulator.rebuild_dispatches
+
+    n0, d0 = xor_kernel.launches, dispatches()
+    rng = np.random.default_rng(41)
+    objs = {f"k{i:03d}": rng.integers(0, 256, int(rng.integers(1, 200_000)),
+                                      dtype=np.uint8).tobytes()
+            for i in range(24)}
+    b = gw.create_bucket("b", num_shards=8)
+    for k, v in objs.items():
+        b.put_object(k, v)
+    uid = b.initiate_multipart("mp")
+    for n in (1, 2):
+        b.upload_part(uid, n, bytes([n]) * 300_000)
+    b.complete_multipart(uid, [1, 2])
+    out = [b.list_objects(max_keys=100)]
+    victim = sim.pg_up(om.pools[1], sim.object_pg(om.pools[1],
+                                                  "rgw_data.b/k000"))[0]
+    sim.fail_osd(victim)
+    for r in range(12):
+        if r != victim and mon.report_failure(victim, r):
+            break
+    out.append([b.get_object(k)[0] == v for k, v in objs.items()])
+    inc = mon.next_incremental()
+    inc.new_weight[victim] = 0
+    mon.commit_incremental(inc)
+    out.append(sim.recover_all(1))
+    out.append([b.get_object(k)[0] == v for k, v in objs.items()] +
+               [b.get_object("mp")[0] == b"\x01" * 300_000 +
+                b"\x02" * 300_000])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    state = {name: sim.get(pid, name)
+             for (pid, name) in sorted(sim.objects)}
+    launched, disp = xor_kernel.launches - n0, dispatches() - d0
+    sim.shutdown()
+    return out, state, launched, disp
+
+
+def _seeded_tokens_and_clock(monkeypatch):
+    """The gateway's tokens (``secrets.token_hex``) and wall clock drawn
+    from one seed, so two runs write the same bytes."""
+    import random
+    import secrets
+    import types
+
+    from ceph_tpu_torch.rgw import gateway
+    rng, now = random.Random(0), [1_760_000_000.0]
+
+    def token_hex(n=32):
+        return rng.getrandbits(8 * n).to_bytes(n, "big").hex()
+
+    def wall():
+        now[0] += 0.001
+        return now[0]
+    monkeypatch.setattr(secrets, "token_hex", token_hex)
+    monkeypatch.setattr(gateway, "time", types.SimpleNamespace(
+        time=wall, monotonic=time.monotonic, sleep=time.sleep))
+
+
+def test_bucket_on_rs83_launches_k1_per_dispatch_and_equals_the_cpu(
+        card, monkeypatch):
+    """The gateway over an RS(8,3) bitsliced pool on the card: K1 launches
+    once per codec and rebuild dispatch, no plain version runs, and every
+    read, listing, recovery count and object byte equals the same run on
+    the CPU (tokens and clock seeded alike in both runs)."""
+    import ceph_tpu_torch
+    prev = ceph_tpu_torch.default_device()
+    try:
+        plain = xor_kernel.plain_runs
+        with monkeypatch.context() as mp:
+            _seeded_tokens_and_clock(mp)
+            got = _bucket_on_rs83(card)
+        assert xor_kernel.plain_runs == plain
+        ceph_tpu_torch.set_default_device("cpu")
+        with monkeypatch.context() as mp:
+            _seeded_tokens_and_clock(mp)
+            want = _bucket_on_rs83(torch.device("cpu"))
+    finally:
+        ceph_tpu_torch.set_default_device(prev)
+    out, state, launched, disp = got
+    assert launched == disp and launched > 0
+    assert all(out[1]) and all(out[3]) and out[2]["shards_rebuilt"] > 0
+    assert want[2] == 0
+    assert out == want[0]
+    assert state == want[1]

@@ -104,7 +104,20 @@ def test_port_files_exist():
                  "ceph_tpu_torch/fs/journaler.py",
                  "ceph_tpu_torch/client/rbd.py",
                  "ceph_tpu_torch/client/rbd_mirror.py",
-                 "ceph_tpu_torch/client/neorados.py"):
+                 "ceph_tpu_torch/client/neorados.py",
+                 "ceph_tpu_torch/rgw/__init__.py",
+                 "ceph_tpu_torch/rgw/users.py",
+                 "ceph_tpu_torch/rgw/auth_s3.py",
+                 "ceph_tpu_torch/rgw/gateway.py",
+                 "ceph_tpu_torch/rgw/sync.py",
+                 "ceph_tpu_torch/rgw/zone.py",
+                 "ceph_tpu_torch/rgw/http_frontend.py",
+                 "ceph_tpu_torch/rgw/swift_frontend.py",
+                 "ceph_tpu_torch/rgw/serving.py",
+                 "ceph_tpu_torch/cluster/dr_drill.py",
+                 "ceph_tpu_torch/fs/mdsmap.py",
+                 "ceph_tpu_torch/fs/mds.py",
+                 "ceph_tpu_torch/fs/multimds.py"):
         assert want in names
 
 
@@ -157,8 +170,30 @@ def test_default_device_is_cuda_and_never_falls_back():
         from ceph_tpu_torch.cluster.thrasher import build_default_stack
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_default_stack()
+        # the DR drill's zones and S3Serve's tenant handles: the card
+        # unless the CPU is asked for
+        from ceph_tpu_torch.cluster.dr_drill import (DrillConfig, _SimZone,
+                                                     drill_main, run_drill)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _SimZone("a")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_drill(DrillConfig(seed=0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            drill_main(["--seed", "0"])
+        from ceph_tpu_torch.rgw.serving import (S3ServeHarness,
+                                                ServeConfig, default_tenants)
+        harness = S3ServeHarness("/nonexistent", ServeConfig())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            harness._make_tenant_client(default_tenants()[0], _NoUsers())
         assert ceph_tpu_torch.default_device() == "cuda"
     assert ceph_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+class _NoUsers:
+    """A user store that knows every tenant (for the handle check)."""
+
+    def create(self, uid):
+        return {"keys": [{"access_key": "AK", "secret_key": "SK"}]}
 
 
 def test_set_default_device_round_trip():

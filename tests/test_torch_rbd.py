@@ -492,13 +492,18 @@ def test_neorados_over_daemons_many_concurrent_writes(port_cluster):
     assert asyncio.run(flow()) == [bytes([i]) * 256 for i in range(8)]
 
 
-def test_fs_namespace_holds_only_the_journaler():
-    """The port's ``fs`` package exports the journaler alone until the
-    metadata server modules are ported (ROADMAP C); the reference's also
-    exports the MDS slice."""
+def test_fs_namespace_exports_the_references_names():
+    """The port's ``fs`` package exports what the reference's does, and
+    each name is the port's own class, defined in ``ceph_tpu_torch.fs``."""
     import ceph_tpu.fs as ref_fs
     import ceph_tpu_torch.fs as port_fs
-    public = {n for n in dir(port_fs) if not n.startswith("_")}
-    assert public == {"Journaler", "journaler"}
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")}
+    assert public(port_fs) == public(ref_fs)
+    for name in public(port_fs):
+        obj = getattr(port_fs, name)
+        if isinstance(obj, type):
+            assert obj.__module__.startswith("ceph_tpu_torch.fs."), name
+            assert obj is not getattr(ref_fs, name)
     assert port_fs.Journaler is PORT.journaler.Journaler
-    assert {"MDS", "MDSMap", "MDSCluster"} <= set(dir(ref_fs))
