@@ -23,7 +23,9 @@ and its EC primary, ``client/remote.py``, on the card.  The gateway tier
 (``rgw/``, ``cluster/dr_drill.py``) and the metadata servers
 (``fs/{mds,mdsmap,multimds}.py``) are host code over those clients: their
 erasure-coded objects run on K1, their card-attached wire clients verify
-frames with K3's crc leg.
+frames with K3's crc leg.  The manager's modules (``mgr/``) and the
+operator's tools (``tools/``) are host code over the same maps, clients
+and stores; the tools with device work take ``--device``.
 
 Device policy: entry points run on the card.  The package default device
 is ``cuda``; a caller asks for the CPU explicitly, with
@@ -32,6 +34,8 @@ and without that request an entry point raises — it never falls back to
 the CPU on its own.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -60,3 +64,15 @@ def resolve_device(device=None) -> torch.device:
             "CPU explicitly with device='cpu' or "
             "ceph_tpu_torch.set_default_device('cpu')")
     return dev
+
+
+@contextlib.contextmanager
+def using_device(device):
+    """The package default device set to ``device`` for the block (raising
+    here when it names CUDA and no card is present), and put back after."""
+    prev = _default_device
+    set_default_device(resolve_device(device))
+    try:
+        yield
+    finally:
+        set_default_device(prev)

@@ -1,3 +1,3 @@
-"""Offline tools of the port: the erasure-code benchmark, the
-ceph_erasure_code_benchmark equivalent
-(src/test/erasure-code/ceph_erasure_code_benchmark.cc)."""
+"""Offline tools: crushtool/osdmaptool/ec benchmark equivalents
+(reference: src/tools/crushtool.cc, src/tools/osdmaptool.cc,
+src/test/erasure-code/ceph_erasure_code_benchmark.cc)."""

@@ -30,7 +30,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      liberation (w = 7) and blaum_roth (w = 6) encodes and 2-erasure
      decodes, K2 at LRC k=4 m=2 l=3's global [1, 4, 131072] -> 2 and local
      [1, 3, 131072] -> 1 layers and CLAY(8,4,11)'s pft [1, 2, 2048] -> 2
-     and mds [1, 8, 2048] -> 4 calls);
+     and mds [1, 8, 2048] -> 4 calls; K1 at the rados client's RS(4,2)
+     put of a 4 MiB object and of a 1 MiB bench write (step 10b); and K1
+     and K2 at every shape step 8b launches, their operands taken from
+     each cell of 8b's grid run once through ``bench_sweep.bench_cell``);
   3. the EC data path through ECBackend: an RS(8,3) layout=bitsliced pool,
      1 MiB stripes, 128 objects of 4 MiB put in one ingest batch onto 16
      OSD device caches, 3 OSDs killed, every object read back (degraded
@@ -40,7 +43,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      10-OSD straw2 map, CHOOSELEAF_FIRSTN host, 3 replicas;
      ``OSDMap.map_pgs_batch`` over 2^20 PGs, then 100 OSDs out and the
      remap through both ``map_pgs_batch`` and ``map_batch_delta``; every
-     lane of both sweeps held against the native C++ mapper;
+     lane of both sweeps held against the native C++ mapper; (4b)
+     ``osdmaptool <spec> --test-map-pgs`` on the same map, the spec
+     written with ``CrushMap.to_spec``, two 3-replica pools of 131,072
+     PGs: every up set and primary against the native mapper, the
+     printed avg / min / max against a NumPy count of the native rows;
   5. general placement, the per-lane mapper outside the fast subset: a
      10,000-OSD map made before straw2 (25 racks x 40 hosts x 10 OSDs,
      every bucket ``alg straw``, straw_calc_version 1, the hammer
@@ -53,7 +60,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      recomputed on the host, the general trace counted as run; then each
      legacy algorithm alone (the golden uniform, list, tree and straw
      maps, the mixed-algorithm hierarchy and a tree whose root node
-     weighs 3 x 2^31) at 65,536 lanes against the native mapper;
+     weighs 3 x 2^31) at 65,536 lanes against the native mapper; (5b)
+     ``crushtool -i <that crushmap text> --test --show-statistics
+     --show-utilization`` over x in [0, 262,144), rule 0, 3 replicas,
+     on the general mapper: its mappings against the native mapper, its
+     printout against the same printout made from the native rows, no
+     lane on the host;
   6. the cluster step: a 32-host x 4-OSD map (TAKE root, CHOOSELEAF_INDEP
      host, EMIT), one ClusterSim per RS(8,3) pool (pg_num 256,
      stripe_unit 128 KiB): the default bitsliced pool (HBM-staged, K1) and
@@ -86,7 +98,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      put_many, two OSDs of the first object's up set killed, every object
      read, both marked out, recover_all (CLAY through its sub-chunk
      repair), every object read again; every byte compared, the
-     launches counted per step and shape;
+     launches counted per step and shape; (8b) ``bench_sweep --plugins
+     jax,jerasure --k 4,8 --m 2,3 --sizes 4096,1048576 --iters 4
+     --batch 16`` on the card (device codecs timed with CUDA events):
+     each cell's K1 and K2 launches equal to its codec's dispatches, its
+     rows and skipped cells equal to the port's own run on the CPU;
   9. time each kernel beside its bound and its plain version: device time
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
@@ -108,7 +124,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      byte compared; no daemon may hold a CUDA context (none listed by
      ``nvidia-smi --query-compute-apps``, none with a ``/dev/nvidia*``
      descriptor open), and no host crc scan in this process may cover a
-     full 4 KiB block;
+     full 4 KiB block; (10b) before the daemons stop, a 4+2 pool made
+     with the mon's ``pool_create`` request and the ``"default"``
+     profile, ``rados put`` of a 4 MiB object, ``get`` (every byte
+     equal), ``ls``, ``rm`` and ``rados bench 5``;
  11. the failure pipeline and the block tier on the cluster step's map
      (32 hosts x 4 OSDs) with a 3-replica pool (pg_num 2,048) and an
      RS(8,3) bitsliced pool (pg_num 512), about 100 PG replicas an OSD,
@@ -124,6 +143,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      replicated pool through the card's mapper and the balancer advisor,
      both equal to the same calls on a CPU copy of the map, the deviation
      falling, every upmap keeping one replica a host, no lane on the host;
+     (d) ``rbd`` on the RS(8,3) pool (a 16 MiB image created, written,
+     snapshotted, overwritten, listed, rolled back, protected, cloned,
+     flattened and removed; every byte against an oracle) and
+     ``osdmaptool --upmap`` on the 3-replica pool, its items equal to
+     (c)'s CPU copy's;
  12. the sharded data plane on the card, over a mesh of 4 cells of
      ``cuda:0`` (1-D) and a 2 x 2 mesh: (a) ``entry.cluster_sharded`` at
      phase 6's size (RS(8,3) bitsliced, 32 hosts x 4 OSDs, pg_num 256,
@@ -142,7 +166,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      beside the unsharded launch;
  13. the gateway tier and CephFS on phase 11's stack: (a) ``RGWGateway``
      on a ``Rados`` ioctx of the RS(8,3) pool (4 KiB stripe unit, HBM
-     staging), a bucket of 8 index shards: 1,024 objects of phase 7's
+     staging), a bucket of 8 index shards: 512 objects of phase 7's
      zipf(1.3) size mix put, a 64 MiB multipart object in 8 MiB parts,
      listings by prefix, marker and delimiter, every object read back
      with its ETag the MD5 of its bytes, 3 OSDs killed and every object
@@ -160,8 +184,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the card, its gate green and no full block crc'd on the host here,
      then ``--starve`` red with the gold tenant's share breach; (d)
      ``run_drill(DrillConfig(seed=0))`` with two sim zones on the card
-     green, and red with ``lose_bilog``.  Then the whole smoke's wall
-     time.
+     green, and red with ``lose_bilog``; (e) on (a)'s gateway,
+     ``radosgw-admin`` user create and info, bucket list, stats and limit
+     check (the object count and bytes equal to (a)'s writes), then
+     ``MgrModuleHost`` over (a)'s sim and mon with the five modules: a
+     Prometheus render (every perf group a family) and one scrape over
+     HTTP, the dashboard's API, the autoscaler's recommendations,
+     telemetry's report and devicehealth's samples.  Then the whole
+     smoke's wall time.
 
 Around each path of phases 3, 6, 7, each pool of phase 8, each step of
 phases 10, 11 and 13 and each run of phase 12 the kernels' launch counts are
@@ -176,7 +206,11 @@ launches plus its device crc dispatches (phase 10: the device crc
 dispatches alone; phase 12: one a cell; phase 13: its device crc
 dispatches, while phase 13's K1 launches equal its ec.jax plus rebuild
 dispatches); the host pools launch nothing,
-and no plain version may run.  The placement phases 4 and 5 and phase
+and no plain version may run; the steps of the tools read their counts
+the same way (8b: K1 equal to each cell's bitsliced ``ec.jax`` and
+bitmatrix dispatches, K2 to its byte-layout ones).  After phases 8, 10,
+11 and 13 the smoke fails if a step launched a kernel at a shape phase 2
+did not hold.  The placement phases 4 and 5 (4b and 5b too) and phase
 12's sweep run no kernel; phase 5 and phase 12's sweep fail if a count
 moves.  Earlier lines print
 the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
@@ -186,6 +220,7 @@ JSON, and the ``{"kernels": [...]}`` line; the last line is
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -206,6 +241,7 @@ from ceph_tpu_torch.cluster.device_store import DeviceShardCache, \
     assemble_object
 from ceph_tpu_torch.cluster.ec_backend import ECBackend, ObjectGeom, ShardIO
 from ceph_tpu_torch.ec import bitmatrix_codec, instance
+from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.common.perf_counters import perf
 from ceph_tpu_torch.ops import (_build, crc32_gf2, gf, gf2, gf_jax, gf_pallas,
                                 ragged_fused, xor_kernel)
@@ -776,7 +812,7 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
             "native_s": t_native0 + t_native1,
             "native_threads": os.cpu_count(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "_up0": up0}
+            "_up0": up0, "_cmap": cmap}
 
 
 # the general-placement cluster: a 10,000-OSD map made before straw2
@@ -904,8 +940,9 @@ def general_placement(device, n_pgs: int = 1 << 20,
         v = pc.dump().get(key, 0)
         return v["sum"] if isinstance(v, dict) else v
 
+    text = straw_cluster_text()
     t0 = time.perf_counter()
-    cmap = compile_crushmap(straw_cluster_text())
+    cmap = compile_crushmap(text)
     t_compile = time.perf_counter() - t0
     if cmap.max_devices != GP_RACKS * GP_HOSTS * GP_OSDS or \
             any(b is not None and b.alg != 4 for b in cmap.buckets):
@@ -1012,7 +1049,8 @@ def general_placement(device, n_pgs: int = 1 << 20,
             "native_lanes_checked": 5 * n_pgs, "native_s": native_s,
             "native_threads": os.cpu_count(),
             "max_memory_allocated": peak,
-            "legacy_lanes": GP_LANES, "legacy_map_batch_s": legacy}
+            "legacy_lanes": GP_LANES, "legacy_map_batch_s": legacy,
+            "_text": text}
 
 
 @contextlib.contextmanager
@@ -2200,6 +2238,12 @@ def process_cluster(device, card: str) -> dict:
         launched = {"k1": xor_kernel.launches,
                     "k3": gf_pallas.fused_launches}
         rc.close()
+        # 10b: the rados CLI on a new pool, after the phase's own
+        # observers are put back (its steps count their own launches)
+        undo.close()
+        crcutil.note_scan = note_scan
+        wire._frame_parts = frame_parts
+        tools = tools_rados(device, card, PC_DIR)
     finally:
         undo.close()
         crcutil.note_scan = note_scan
@@ -2233,7 +2277,7 @@ def process_cluster(device, card: str) -> dict:
             "k3_launches_in_checks": launched["k3"] - total["k3"],
             "device_crc_bytes": total["device_crc_bytes"],
             "readback_bytes": total["readback_bytes"], **times,
-            "gpu": card}
+            "_tools": tools, "gpu": card}
 
 
 def pc_csum_timing(device, card: str) -> dict:
@@ -2578,6 +2622,7 @@ def p11_block_tier(device, card: str) -> dict:
                            lambda: neorados("read"), steps, card)
         if list(got) != blobs:
             fail("phase 11 neorados: a read differs from its write")
+        tools = tools_rbd(device, card, io_a)
         rados_a.shutdown()
     finally:
         sim_a.shutdown()
@@ -2589,7 +2634,8 @@ def p11_block_tier(device, card: str) -> dict:
             "mirror_objects_trimmed": trimmed,
             "neorados_objects": P11_NEO_OBJECTS, "steps": steps,
             "k1_launches": sum(s["k1"] for s in steps.values()),
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "_tools": tools}
 
 
 class P11Stats:
@@ -2672,7 +2718,8 @@ def p11_balancer(device, card: str) -> dict:
             "upmap_pgs": len(om.pg_upmap_items), "fallback_lanes": fallback,
             "advisor_score_before": report["score_before"],
             "advisor_score_after": report["score_after"],
-            "advisor_moves": report.get("moves", 0), "steps": steps}
+            "advisor_moves": report.get("moves", 0), "steps": steps,
+            "_tools": tools_upmap(device, card, om, (want, cpu))}
 
 
 # ------------------------------------------------------------ phase 12 --
@@ -2931,7 +2978,9 @@ def p12_nccl(device, card: str, gen) -> dict:
 # 3-replica pool of 2,048 PGs and an RS(8,3) bitsliced pool of 512 PGs
 # at Ceph's default 4 KiB stripe unit, on the HBM staging tier), then
 # S3Serve at its stock profile and the DR drill.
-P13_OBJECTS = 1024            # phase 7's S3Serve size mix, zipf(1.3)
+P13_OBJECTS = 512             # phase 7's S3Serve size mix, zipf(1.3)
+#                              (1,024 until the tools' steps came; cut
+#                              to keep the smoke in its time)
 P13_SHARDS = 8                # S3Serve's ServeConfig.index_shards
 P13_RESHARD = 16
 P13_LIVE_PUTS = 64            # written while the bucket reshards
@@ -3010,7 +3059,8 @@ def p13_s3(device, card: str) -> dict:
     md5 = {k: hashlib.md5(v).hexdigest() for k, v in objs.items()}
     sim, mon = p11_stack(device)
     try:
-        gw = RGWGateway(Rados(sim, mon).connect().open_ioctx("ec"))
+        io_s3 = Rados(sim, mon).connect().open_ioctx("ec")
+        gw = RGWGateway(io_s3)
         b = gw.create_bucket("s3", num_shards=P13_SHARDS)
 
         etags = counted_step(device, 13, "s3_put", lambda: [
@@ -3152,11 +3202,14 @@ def p13_s3(device, card: str) -> dict:
         if total != len(objs):
             fail(f"phase 13 s3: {total} keys listed, {len(objs)} written")
         stored = sum(len(v) for v in objs.values())
+        # 13e: radosgw-admin and the manager's modules on this gateway
+        tools = tools_gateway_mgr(device, card, sim, mon, io_s3, objs,
+                                  stored, steps)
     finally:
         sim.shutdown()
     return {"objects": len(objs), "bytes": stored, "victims": victims,
             "recover": rec, "reshard": st, "payload_generation_s": gen_s,
-            "steps": steps}
+            "steps": steps, "_tools": tools}
 
 
 def p13_cephfs(device, card: str) -> dict:
@@ -3333,6 +3386,638 @@ def p13_drill(device, card: str) -> dict:
             "lose_bilog_failures": red["failures"], "steps": steps}
 
 
+# ---------------------------------------------------- the operator's tools --
+#
+# The tools run through their entry points (``main(argv)`` with
+# ``--device cuda`` where the tool takes it) on the phase whose map,
+# cluster or gateway they use: 4b osdmaptool on phase 4's map, 5b
+# crushtool on phase 5's crushmap text, 8b bench_sweep after phase 8, 10b
+# rados on phase 10's daemons, 11d rbd and osdmaptool --upmap on phase
+# 11's stack, 13e radosgw-admin and the manager's five modules on phase
+# 13's gateway.
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "tools")
+T4_PGS = 1 << 17              # each of 2 pools: 2^18 PGs, ~79 an OSD
+T5_LANES = 1 << 18            # crushtool's x range
+T8_GRID = {"plugins": "jax,jerasure", "k": "4,8", "m": "2,3",
+           "sizes": "4096,1048576", "workloads": "encode,decode"}
+T8_ARGS = [a for key, val in T8_GRID.items() for a in (f"--{key}", val)]
+T8_ITERS, T8_BATCH = 4, 16
+T10_PGS = 32
+T10_OBJ = 4 << 20
+T10_BENCH_S = 5
+T11_IMAGE = 16 << 20
+
+
+def tool_run(main, argv, **kw):
+    """(exit code, stdout, stderr) of a tool's ``main(argv, **kw)`` in this
+    process; a tool that takes ``out=`` writes its stdout there."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        if kw.pop("out", False):
+            rc = main(argv, out=out, **kw)
+        else:
+            rc = main(argv, **kw)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@contextlib.contextmanager
+def returns_of(owner, name: str, sink: list):
+    """Appends what ``owner.name`` returns to ``sink`` while the block runs
+    (a pass-through around it), then puts it back."""
+    fn = getattr(owner, name)
+
+    def observed(*a, **k):
+        r = fn(*a, **k)
+        sink.append(r)
+        return r
+    setattr(owner, name, observed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def shapes_of(steps: dict) -> dict:
+    """{kernel: {key: launches}} summed over counted steps."""
+    out = {}
+    for st in steps.values():
+        for kern, keys in st["launch_shapes"].items():
+            h = out.setdefault(kern, {})
+            for key, n in keys.items():
+                h[key] = h.get(key, 0) + n
+    return out
+
+
+def check_held(where: str, launched: dict, held: dict) -> None:
+    """Fails if a step launched a kernel at a shape phase 2 did not hold
+    against its plain version ({kernel: {key: n}})."""
+    for kernel, keys in launched.items():
+        loose = [k for k in sorted(keys) if not shape_held(k, held[kernel])]
+        if loose:
+            fail(f"{where} launched {kernel.upper()} at shapes phase 2 did "
+                 f"not hold against its plain version: {loose}")
+
+
+def tools_osdmaptool(device, card: str, cmap) -> dict:
+    """4b: ``osdmaptool <spec> --test-map-pgs`` on phase 4's map, two
+    3-replica pools of T4_PGS PGs; every up set and primary against the
+    native mapper, the printed avg / min / max against a NumPy count of
+    the native rows."""
+    from ceph_tpu_torch.cluster.osdmap import OSDMap
+    from ceph_tpu_torch.native_bridge import NativeMapper
+    from ceph_tpu_torch.placement.crush_map import ITEM_NONE
+    from ceph_tpu_torch.tools import osdmaptool
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    spec = {"crush": cmap.to_spec(),
+            "pools": [{"id": p, "name": f"rep{p}", "type": 1, "size": 3,
+                       "pg_num": T4_PGS, "crush_rule": 0} for p in (1, 2)],
+            "osds": {"down": [], "out": []}}
+    path = os.path.join(TOOLS_DIR, "osdmap.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    maps = []
+    c0 = step_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    with returns_of(OSDMap, "map_pgs_batch", maps):
+        rc, out, err = tool_run(osdmaptool.main, [
+            path, "--test-map-pgs", "--device", str(device)])
+    sync(device)
+    wall = time.perf_counter() - t0
+    if rc != 0 or len(maps) != 2:
+        fail(f"4b osdmaptool: exit {rc}, {len(maps)} pool sweeps")
+    if step_counts() != c0:
+        fail("4b osdmaptool: a kernel or a plain version ran on placement")
+    om = osdmaptool.load_cluster(spec, device="cpu")
+    nm = NativeMapper(cmap)
+    weights = om.osd_weight[:cmap.max_devices].copy()
+    counts = np.zeros(om.max_osd, dtype=np.int64)
+    t0 = time.perf_counter()
+    for pid, (up, prim) in zip((1, 2), maps):
+        pps = om.pools[pid].raw_pg_to_pps_batch(np.arange(T4_PGS))
+        want = compact(native_rows(nm, pps, 3, weights), ITEM_NONE)
+        want_prim = np.where(want[:, 0] != ITEM_NONE, want[:, 0], -1)
+        if not np.array_equal(np.asarray(up), want) or \
+                not np.array_equal(np.asarray(prim), want_prim):
+            fail(f"4b osdmaptool: pool {pid}'s up sets or primaries differ "
+                 "from the native mapper")
+        np.add.at(counts, want[want != ITEM_NONE], 1)
+    native_s = time.perf_counter() - t0
+    used = counts[counts > 0]
+    want_out = (f" avg {used.mean():.2f} min {used.min()} max {used.max()} "
+                f"over {len(used)} osds\n total replicas {2 * T4_PGS * 3}\n")
+    if out != want_out:
+        fail(f"4b osdmaptool printed {out!r}, the native count {want_out!r}")
+    pgs_s = float(err.split("(")[1].split(" pg/s")[0].replace(",", ""))
+    return {"pools": 2, "pgs": 2 * T4_PGS, "osds": cmap.max_devices,
+            "stdout": out.splitlines(), "pg_per_s": pgs_s,
+            "tool_wall_s": wall, "native_s": native_s,
+            "native_lanes_checked": 2 * T4_PGS, "launches": {},
+            "gpu": card}
+
+
+def tools_crushtool(device, card: str, text: str) -> dict:
+    """5b: ``crushtool -i <phase 5's crushmap text> --test
+    --show-statistics --show-utilization`` over x in [0, T5_LANES) on the
+    general mapper; its mappings against the native mapper, and its
+    printout against the same printout made from the native rows."""
+    import argparse
+
+    from ceph_tpu_torch.native_bridge import NativeMapper
+    from ceph_tpu_torch.placement.compiler import compile_crushmap
+    from ceph_tpu_torch.placement.crush_map import WEIGHT_ONE
+    from ceph_tpu_torch.placement.xla_mapper import XlaMapper
+    from ceph_tpu_torch.tools import crushtool
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    path = os.path.join(TOOLS_DIR, "straw.crush")
+    with open(path, "w") as f:
+        f.write(text)
+    pc = perf("crush.mapper")
+    f0 = pc.dump().get("fallback_lanes", 0)
+    rows = []
+    c0 = step_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    with returns_of(XlaMapper, "map_batch", rows):
+        rc, out, err = tool_run(crushtool.main, [
+            "-i", path, "--test", "--show-statistics", "--show-utilization",
+            "--min-x", "0", "--max-x", str(T5_LANES - 1), "--rule", "0",
+            "--num-rep", "3", "--device", str(device)])
+    sync(device)
+    wall = time.perf_counter() - t0
+    fallback = pc.dump().get("fallback_lanes", 0) - f0
+    if rc != 0 or len(rows) != 1:
+        fail(f"5b crushtool: exit {rc}, {len(rows)} sweeps")
+    if fallback:
+        fail(f"5b crushtool: {fallback} lanes went to the host")
+    if step_counts() != c0:
+        fail("5b crushtool: a kernel or a plain version ran on placement")
+    cmap = compile_crushmap(text)
+    t0 = time.perf_counter()
+    raw = native_rows(NativeMapper(cmap), np.arange(T5_LANES), 3,
+                      [WEIGHT_ONE] * cmap.max_devices)
+    native_s = time.perf_counter() - t0
+    if not np.array_equal(np.asarray(rows[0]), raw):
+        fail("5b crushtool: the mappings differ from the native mapper")
+    # the tool's printout made from the native rows: the utilization
+    # lines are a count of them
+    args = argparse.Namespace(
+        rule=0, weight=None, min_x=0, max_x=T5_LANES - 1, num_rep=3,
+        min_rep=1, max_rep=10, scalar=False, show_mappings=False,
+        show_utilization=True, show_statistics=True,
+        show_bad_mappings=False, device=torch.device("cpu"))
+    buf = io.StringIO()
+    keep = XlaMapper.map_batch
+    XlaMapper.map_batch = lambda self, *a, **k: raw
+    try:
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            crushtool.run_test(cmap, args)
+    finally:
+        XlaMapper.map_batch = keep
+    if out != buf.getvalue():
+        fail("5b crushtool: the utilization or statistics lines differ from "
+             "a count of the native rows")
+    rate = float(err.split("(")[1].split(" mappings/s")[0].replace(",", ""))
+    return {"lanes": T5_LANES, "rule": 0, "num_rep": 3,
+            "osds": cmap.max_devices, "fallback_lanes": fallback,
+            "mappings_per_s": rate, "tool_wall_s": wall,
+            "native_s": native_s,
+            "stdout_lines": len(out.splitlines()),
+            "statistics": [ln for ln in out.splitlines() if " size " in ln],
+            "launches": {}, "gpu": card}
+
+
+def sweep_dispatches() -> dict:
+    """``step_counts`` and the bitmatrix codec's dispatches."""
+    return dict(step_counts(),
+                bitmatrix=bitmatrix_codec.encode_dispatches +
+                bitmatrix_codec.decode_dispatches)
+
+
+def sweep_rows(stdout: str) -> list:
+    """bench_sweep's CSV rows less the measured ``gbps`` column."""
+    return [ln.rsplit(",", 1)[0] for ln in stdout.splitlines()[1:]]
+
+
+def tools_bench_sweep(device, card: str) -> dict:
+    """8b: ``bench_sweep`` over the jax and jerasure codecs on the card;
+    each cell's K1 and K2 launches against its codec's dispatches, the
+    rows and skipped cells against the port's own run on the CPU."""
+    from ceph_tpu_torch.tools import bench_sweep
+    cells = []
+    cell = bench_sweep.bench_cell
+    shapes = {}
+
+    def observed(plugin, technique, k, m, size, workload, *a, **kw):
+        c0 = sweep_dispatches()
+        try:
+            return cell(plugin, technique, k, m, size, workload, *a, **kw)
+        finally:
+            d = {key: v - c0[key] for key, v in sweep_dispatches().items()}
+            cells.append(((plugin, technique, k, m, size, workload), d))
+
+    def seen(kernel, key):
+        h = shapes.setdefault(kernel, {})
+        h[key] = h.get(key, 0) + 1
+
+    argv = T8_ARGS + ["--iters", str(T8_ITERS), "--batch", str(T8_BATCH),
+                      "--device", str(device)]
+    sync(device)
+    t0 = time.perf_counter()
+    bench_sweep.bench_cell = observed
+    try:
+        with launch_shapes(seen):
+            rc, out, err = tool_run(bench_sweep.main, argv)
+    finally:
+        bench_sweep.bench_cell = cell
+    sync(device)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"8b bench_sweep: exit {rc}")
+    k1 = k2 = 0
+    for (plugin, technique, *_), d in cells:
+        if d["plain"] or d["k3"]:
+            fail(f"8b bench_sweep {plugin}/{technique}: a plain version or "
+                 f"K3 ran ({d})")
+        bitsliced = plugin == "jax" and technique.endswith("+bitsliced")
+        jax = d["ec_dispatches"]
+        want1 = (jax if bitsliced else 0) + d["bitmatrix"]
+        want2 = 0 if bitsliced or plugin != "jax" else jax
+        if (d["k1"], d["k2"]) != (want1, want2):
+            fail(f"8b bench_sweep {plugin}/{technique}: K1 {d['k1']} and K2 "
+                 f"{d['k2']} launches for {jax} ec.jax and "
+                 f"{d['bitmatrix']} bitmatrix dispatches")
+        k1 += d["k1"]
+        k2 += d["k2"]
+    if not k1 or not k2:
+        fail(f"8b bench_sweep: K1 {k1}, K2 {k2} launches")
+    # the port's own run on the CPU: the same rows and skipped cells
+    # (iterations and batch change neither)
+    t0 = time.perf_counter()
+    rc_c, out_c, err_c = tool_run(bench_sweep.main, T8_ARGS + [
+        "--iters", "1", "--batch", "2", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    skipped = [ln for ln in err.splitlines() if ln.startswith("# ")]
+    if rc_c != 0 or sweep_rows(out) != sweep_rows(out_c) or \
+            skipped != [ln for ln in err_c.splitlines()
+                        if ln.startswith("# ")]:
+        fail("8b bench_sweep: the card's rows or skipped cells differ from "
+             "the CPU run's")
+    return {"rows": out.splitlines()[1:], "skipped": skipped,
+            "cells": len(cells), "k1_launches": k1, "k2_launches": k2,
+            "launch_shapes": shapes, "tool_wall_s": wall,
+            "cpu_run_s": cpu_s, "iters": T8_ITERS, "batch": T8_BATCH,
+            "gpu": card}
+
+
+def tools_rados(device, card: str, cluster_dir: str) -> dict:
+    """10b: on phase 10's daemons, a 4+2 pool made with the mon's
+    ``pool_create`` request and the ``"default"`` profile (the request
+    ``ceph osd pool create`` sends); ``rados put`` of a 4 MiB object,
+    ``get``, ``ls``, ``rm``, then ``rados bench`` of 1 MiB writes."""
+    from ceph_tpu_torch.client.remote import RemoteCluster
+    from ceph_tpu_torch.tools import rados_cli
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    steps = {}
+    rc = RemoteCluster(cluster_dir)
+    try:
+        made = rc.mon_call({"cmd": "pool_create", "name": "rados42",
+                            "pg_num": T10_PGS, "type": 3, "size": 6,
+                            "crush_rule": 1,
+                            "erasure_code_profile": "default"})
+    finally:
+        rc.close()
+    data = np.random.default_rng(SEED + 100).integers(
+        0, 256, T10_OBJ, dtype=np.uint8).tobytes()
+    got_path = os.path.join(TOOLS_DIR, "rados_get.bin")
+
+    def rados(*words, data_in=None):
+        return tool_run(rados_cli.main, [
+            "--dir", cluster_dir, "-p", "rados42", *words, "--device",
+            str(device)], out=True, data_in=data_in)
+
+    def put():
+        # retried until every shard acks (ROADMAP C5)
+        for _ in range(12):
+            res = rados("put", "big", "-", data_in=data)
+            if res[1] == f"wrote {T10_OBJ} bytes (6 acks)\n":
+                return res
+            time.sleep(0.5)
+        fail(f"10b rados put: {res}")
+
+    counted_step(device, 10, "tools_rados_put", put, steps, card)
+    res = counted_step(device, 10, "tools_rados_get",
+                       lambda: rados("get", "big", got_path), steps, card)
+    with open(got_path, "rb") as f:
+        if res[0] != 0 or f.read() != data:
+            fail("10b rados get: the bytes read back differ")
+    os.remove(got_path)
+    res = counted_step(device, 10, "tools_rados_ls", lambda: rados("ls"),
+                       steps, card)
+    if res[0] != 0 or "big" not in res[1].splitlines():
+        fail(f"10b rados ls: {res}")
+    res = counted_step(device, 10, "tools_rados_rm",
+                       lambda: rados("rm", "big"), steps, card)
+    if res[0] != 0:
+        fail(f"10b rados rm: {res}")
+    res = counted_step(device, 10, "tools_rados_bench",
+                       lambda: rados("bench", str(T10_BENCH_S)), steps, card)
+    words = res[1].split()
+    if res[0] != 0 or words[1:4] != ["writes", "x", "1"]:
+        fail(f"10b rados bench: {res}")
+    return {"pool": made, "object_bytes": T10_OBJ,
+            "bench_writes": int(words[0]),
+            "bench_mib_per_s": float(words[-2]),
+            "bench_line": res[1].strip(), "steps": steps,
+            "k1_launches": sum(s["k1"] for s in steps.values()),
+            "k3_launches": sum(s["k3"] for s in steps.values()),
+            "launch_shapes": shapes_of(steps), "gpu": card}
+
+
+def tools_rbd(device, card: str, io_a) -> dict:
+    """11d: ``rbd`` on phase 11's RS(8,3) pool: create a 16 MiB image,
+    write it whole, snapshot, overwrite its first object, list and roll
+    back, protect, clone, flatten, remove; every byte against an
+    in-memory oracle.  On an EC pool the overwrite drops the object's
+    SnapSet in both packages (ROADMAP C), so the rollback and the clone
+    read the head: the oracle follows the reference."""
+    from ceph_tpu_torch.client.rbd import Image
+    from ceph_tpu_torch.tools import rbd_cli
+    steps = {}
+    rng = np.random.default_rng(SEED + 111)
+    oracle = bytearray(rng.integers(0, 256, T11_IMAGE, dtype=np.uint8)
+                       .tobytes())
+    first = rng.integers(0, 256, P11_OBJ, dtype=np.uint8).tobytes()
+
+    def rbd(*args):
+        res = tool_run(rbd_cli.main, list(args), ioctx=io_a, out=True)
+        if res[0] != 0:
+            fail(f"11d rbd {' '.join(args)}: {res}")
+        return json.loads(res[1])
+
+    def write_whole():
+        img = Image(io_a, "t16")
+        for off in range(0, T11_IMAGE, P11_OBJ):
+            img.write(off, bytes(oracle[off:off + P11_OBJ]))
+
+    def overwrite_first():
+        Image(io_a, "t16").write(0, first)
+        oracle[:P11_OBJ] = first
+
+    for label, fn in (
+            ("create", lambda: rbd("create", "t16", "--size",
+                                   str(T11_IMAGE))),
+            ("write", write_whole),
+            ("snap_create", lambda: rbd("snap", "create", "t16@s1")),
+            ("overwrite", overwrite_first),
+            ("snap_ls", lambda: rbd("snap", "ls", "t16")),
+            ("snap_rollback", lambda: rbd("snap", "rollback", "t16@s1")),
+            ("snap_protect", lambda: rbd("snap", "protect", "t16@s1")),
+            ("clone", lambda: rbd("clone", "t16@s1", "t16c")),
+            ("flatten", lambda: rbd("flatten", "t16c")),
+            ("read_back", lambda: (
+                Image(io_a, "t16").read(0, T11_IMAGE),
+                Image(io_a, "t16c").read(0, T11_IMAGE))),
+            ("rm", lambda: [rbd("rm", "t16c"),
+                            rbd("snap", "unprotect", "t16@s1"),
+                            rbd("snap", "rm", "t16@s1"), rbd("rm", "t16"),
+                            rbd("ls")])):
+        out = counted_step(device, 11, f"tools_rbd_{label}", fn, steps, card)
+        if label == "snap_ls" and out != ["s1"]:
+            fail(f"11d rbd snap ls: {out}")
+        if label == "read_back" and (out[0] != bytes(oracle) or
+                                     out[1] != bytes(oracle)):
+            fail("11d rbd: the image or its flattened clone differs from "
+                 "its oracle")
+        if label == "rm" and {"t16", "t16c"} & set(out[-1]):
+            fail(f"11d rbd: an image outlived its rm: {out[-1]}")
+    return {"image_bytes": T11_IMAGE, "steps": steps,
+            "k1_launches": sum(s["k1"] for s in steps.values()),
+            "launch_shapes": shapes_of(steps), "gpu": card}
+
+
+def tools_upmap(device, card: str, om, want) -> dict:
+    """11d: ``osdmaptool --upmap`` on phase 11's map with its 3-replica
+    pool; the items and the printed line against phase 11c's CPU copy's
+    ``calc_pg_upmaps`` (``want``, its pool 1, at its 64 moves a round)."""
+    from ceph_tpu_torch.tools import osdmaptool
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    pool = om.pools[1]
+    spec = {"crush": om.crush.to_spec(),
+            "pools": [{"id": 1, "name": "rep", "type": 1, "size": pool.size,
+                       "pg_num": pool.pg_num, "crush_rule": pool.crush_rule}],
+            "osds": {"down": [], "out": []}}
+    path = os.path.join(TOOLS_DIR, "p11_osdmap.json")
+    out_path = os.path.join(TOOLS_DIR, "p11_upmap.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    steps = {}
+    rc, out, _ = counted_step(device, 11, "tools_osdmaptool_upmap",
+                              lambda: tool_run(osdmaptool.main, [
+                                  path, "--upmap", out_path, "--upmap-max",
+                                  "64", "--device", str(device)]),
+                              steps, card)
+    with open(out_path) as f:
+        items = json.load(f)["pg_upmap_items"]
+    res, cpu = want
+    want_items = {f"{pid}.{pg}": [[int(a), int(b)] for a, b in pairs]
+                  for (pid, pg), pairs in sorted(cpu.pg_upmap_items.items())}
+    want_line = (f"balanced in {res.rounds} rounds: {res.moves} moves, "
+                 f"max deviation {res.max_deviation_before:.2f} -> "
+                 f"{res.max_deviation_after:.2f}\n")
+    if rc != 0 or items != want_items or out != want_line:
+        fail(f"11d osdmaptool --upmap: {out!r} and {len(items)} items, the "
+             f"CPU copy {want_line!r} and {len(want_items)}")
+    return {"upmap_pgs": len(items), "stdout": out.strip(), "steps": steps,
+            "gpu": card}
+
+
+def tools_gateway_mgr(device, card: str, sim, mon, io_s3, objs: dict,
+                      stored: int, steps: dict) -> dict:
+    """13e: ``radosgw-admin`` on phase 13's gateway (user create / info,
+    bucket list / stats / limit check), then ``MgrModuleHost`` over its
+    sim and mon with the five modules: a Prometheus render and one HTTP
+    scrape, the dashboard's API, the autoscaler's recommendations,
+    telemetry's report and devicehealth's samples."""
+    import urllib.request
+
+    from ceph_tpu_torch.mgr import (MgrModuleHost, dashboard_module,
+                                    devicehealth_module, pg_autoscaler,
+                                    prometheus_module, telemetry_module)
+    from ceph_tpu_torch.tools import radosgw_admin
+
+    def admin(*args):
+        res = tool_run(radosgw_admin.main, list(args), ioctx=io_s3, out=True)
+        if res[0] != 0:
+            fail(f"13e radosgw-admin {' '.join(args)}: {res}")
+        return json.loads(res[1])
+
+    def step(label, fn):
+        return counted_step(device, 13, f"tools_{label}", fn, steps, card)
+
+    user = step("radosgw_admin_user_create", lambda: admin(
+        "user", "create", "--uid", "ops", "--display-name", "Operator"))
+    if step("radosgw_admin_user_info",
+            lambda: admin("user", "info", "--uid", "ops")) != user:
+        fail("13e radosgw-admin: user info differs from user create")
+    buckets = step("radosgw_admin_bucket_list",
+                   lambda: admin("bucket", "list"))
+    stats = step("radosgw_admin_bucket_stats", lambda: admin(
+        "bucket", "stats", "--bucket", "s3"))["s3"]
+    limits = step("radosgw_admin_bucket_limit_check",
+                  lambda: admin("bucket", "limit", "check"))
+    if buckets != ["s3"] or stats["num_objects"] != len(objs) or \
+            stats["size"] != stored or stats["num_shards"] != P13_RESHARD:
+        fail(f"13e radosgw-admin: buckets {buckets}, stats {stats}; phase "
+             f"13 wrote {len(objs)} objects of {stored} B")
+    row = {r["bucket"]: r for r in limits}["s3"]
+    if sum(row["shard_entries"]) != len(objs) or \
+            row["num_shards"] != P13_RESHARD:
+        fail(f"13e radosgw-admin bucket limit check: {row}")
+
+    host = MgrModuleHost(sim, mon)
+    for mod in (prometheus_module, pg_autoscaler, devicehealth_module,
+                telemetry_module, dashboard_module):
+        mod.register(host)
+    for name in ("prometheus", "pg_autoscaler", "devicehealth", "telemetry",
+                 "dashboard"):
+        host.enable(name)
+    per_pool = {}
+    for (pid, _name), _info in sim.objects.items():
+        per_pool[pid] = per_pool.get(pid, 0) + 1
+    prom = host.modules["prometheus"]
+    t0 = time.perf_counter()
+    text = step("mgr_prometheus_render", prom.render)
+    render_s = time.perf_counter() - t0
+    groups = sorted(g for g, d in perf().dump_typed().items() if d)
+    missing = [g for g in groups if "# TYPE ceph_tpu_" + g.replace(
+        ".", "_").replace("-", "_") + "_" not in text]
+    if missing:
+        fail(f"13e prometheus: perf groups with no family: {missing}")
+    for pid in sim.osdmap.pools:
+        line = f'ceph_pool_objects{{pool_id="{pid}"}} {per_pool.get(pid, 0)}'
+        if line not in text.splitlines():
+            fail(f"13e prometheus: no line {line!r}")
+    port = prom.start_http(0)
+    try:
+        body = step("mgr_prometheus_scrape", lambda: urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=60).read().decode())
+    finally:
+        prom.stop_http()
+    families = {ln.split()[2] for ln in text.splitlines()
+                if ln.startswith("# TYPE ")}
+    if {ln.split()[2] for ln in body.splitlines()
+            if ln.startswith("# TYPE ")} != families:
+        fail("13e prometheus: the scrape's families differ from the render's")
+    dash = host.modules["dashboard"]
+    dport = dash.start_http(0)
+    api = {}
+    try:
+        def get_all():
+            import http.client
+            for route in ("/api/summary", "/api/health", "/api/osds",
+                          "/api/pools", "/api/pgs", "/api/perf",
+                          "/api/crush", "/api/config"):
+                c = http.client.HTTPConnection("127.0.0.1", dport,
+                                               timeout=120)
+                c.request("GET", route)
+                r = c.getresponse()
+                api[route] = (r.status, json.loads(r.read()))
+                c.close()
+        step("mgr_dashboard_api", get_all)
+    finally:
+        dash.stop_http()
+    if any(st != 200 for st, _ in api.values()):
+        fail(f"13e dashboard: {[(k, v[0]) for k, v in api.items()]}")
+    pools = {p["id"]: p for p in api["/api/pools"][1]}
+    pgs = api["/api/pgs"][1]
+    if any(pools[pid]["objects"] != per_pool.get(pid, 0) for pid in pools) \
+            or sum(pgs["states"].values()) != sum(
+                p.pg_num for p in sim.osdmap.pools.values()):
+        fail(f"13e dashboard: pools {pools} or PG states {pgs['states']}")
+    recs = step("mgr_pg_autoscaler",
+                host.modules["pg_autoscaler"].recommendations)
+    tel = host.modules["telemetry"]
+    tel.on()
+    step("mgr_telemetry_send", tel.send)
+    report = tel.last_report()
+    if report["total_objects"] != len(sim.objects) or \
+            len(report["pools"]) != len(sim.osdmap.pools):
+        fail(f"13e telemetry: {report['total_objects']} objects in the "
+             f"report, {len(sim.objects)} in the sim")
+    dh = host.modules["devicehealth"]
+    step("mgr_devicehealth_scrape", dh.scrape)
+    verdicts = {}
+    for i in dh.metrics:
+        v = dh.life_expectancy(i)
+        verdicts[v] = verdicts.get(v, 0) + 1
+    return {"user": user["uid"], "bucket_stats": stats,
+            "limit_check": row, "render_bytes": len(text.encode()),
+            "render_s": render_s, "families": len(families),
+            "perf_groups": len(groups), "health": api["/api/health"][1],
+            "pg_states": pgs["states"], "autoscaler": recs,
+            "telemetry_health": report["health"],
+            "devicehealth_verdicts": verdicts,
+            "devicehealth_checks": dh.checks(), "gpu": card}
+
+def rados_k1_shapes(device, gen) -> dict:
+    """K1 at 10b's shapes: the rados client's RS(4,2) pool (the
+    ``"default"`` profile's fallback, C11) encodes a 4 MiB object as one
+    stripe of 1 MiB chunks and a bench write as one of 256 KiB chunks."""
+    masks = torch.as_tensor(gf2.bitmatrix_masks(gf.gf8_bitmatrix(
+        gf.vandermonde_parity(4, 2))), device=device)
+    return {f"rados_put_{W}": (masks, random_words((1, 32, W), gen, device))
+            for W in (T10_OBJ // 4 // 32, (1 << 20) // 4 // 32)}
+
+
+def bench_sweep_operands(device):
+    """K1's and K2's operands at 8b's shapes: every cell of 8b's grid run
+    once through ``bench_sweep.bench_cell`` at its batch on the card, the
+    first operand of each launch shape kept.  Returns ({name: (masks,
+    words)}, {name: (bitmat, data)}) for ``kernel_checks`` and
+    ``k2_checks``."""
+    from ceph_tpu_torch.tools import bench_sweep
+    k1, k2 = {}, {}
+    l1, l2 = xor_kernel._launch, gf_pallas._launch
+
+    def cap1(m3, w3, per_batch):
+        key = ",".join(map(str, w3.shape)) + f"->{m3.shape[1]}"
+        if key not in k1:
+            k1[key] = (m3.clone() if per_batch else m3[0].clone(),
+                       w3.clone())
+        return l1(m3, w3, per_batch)
+
+    def cap2(bm, d3, m):
+        key = ",".join(map(str, d3.shape)) + f"->{m}"
+        if key not in k2:
+            k2[key] = (bm.copy(), d3.clone())
+        return l2(bm, d3, m)
+
+    xor_kernel._launch, gf_pallas._launch = cap1, cap2
+    try:
+        for plugin in T8_GRID["plugins"].split(","):
+            for technique in bench_sweep.TECHNIQUES[plugin]:
+                for k in map(int, T8_GRID["k"].split(",")):
+                    for m in map(int, T8_GRID["m"].split(",")):
+                        for size in map(int, T8_GRID["sizes"].split(",")):
+                            for wl in T8_GRID["workloads"].split(","):
+                                try:
+                                    bench_sweep.bench_cell(
+                                        plugin, technique, k, m, size, wl,
+                                        1, T8_BATCH, device)
+                                except ErasureCodeError:
+                                    # a profile the codec refuses: the
+                                    # sweep skips it too (8b holds its
+                                    # skips to the CPU run's)
+                                    pass
+    finally:
+        xor_kernel._launch, gf_pallas._launch = l1, l2
+    return ({f"sweep_{key}": v for key, v in k1.items()},
+            {f"sweep_{key}": v for key, v in k2.items()})
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3437,9 +4122,14 @@ def main() -> int:
                 "layout": "bitsliced"})
     shapes = k1_shapes(device, codec, gen)
     shapes.update(plugin_k1_shapes(device, gen))
-    errs = kernel_checks(device, shapes)
+    shapes.update(rados_k1_shapes(device, gen))
     shapes2 = k2_shapes(device, gen)
     shapes2.update(plugin_k2_shapes(device, gen))
+    sweep_k1, sweep_k2 = bench_sweep_operands(device)
+    shapes.update(sweep_k1)
+    shapes2.update(sweep_k2)
+    del sweep_k1, sweep_k2
+    errs = kernel_checks(device, shapes)
     errs2 = k2_checks(device, shapes2)
     zw_shards = zerowire_shards()
     zw_pool = ragged_fused.pack(zw_shards).pool
@@ -3447,6 +4137,8 @@ def main() -> int:
     errs3 = k3_checks(device, shapes3)
     held = {"k1": held_shapes((w.shape, m.shape[-2])
                               for m, w in shapes.values()),
+            "k2": held_shapes((d.shape, b.shape[0] // 8)
+                              for b, d in shapes2.values()),
             "k3": held_shapes((p.shape, b.shape[0] // 8)
                               for b, p in shapes3.values() if p.dim() == 3)}
     del shapes3
@@ -3477,14 +4169,25 @@ def main() -> int:
     # 4. the placement sweep (no kernel: batched torch on the card)
     sweep = placement_sweep(device)
     sweep_up0 = sweep.pop("_up0")
+    sweep_cmap = sweep.pop("_cmap")
     sweep["gpu"] = card
     emit({"phase": "placement_sweep", **sweep})
+    # 4b. osdmaptool --test-map-pgs on the same map
+    t0 = time.perf_counter()
+    t4 = tools_osdmaptool(device, card, sweep_cmap)
+    emit({"phase": "tools_osdmaptool", "s": time.perf_counter() - t0, **t4})
+    del sweep_cmap
 
     # 5. general placement: the per-lane mapper (no kernel; the kernels'
     # counts are read around it inside and must not move)
     gp = general_placement(device)
+    gp_text = gp.pop("_text")
     gp["gpu"] = card
     emit({"phase": "general_placement", **gp})
+    # 5b. crushtool --test on the same crushmap text
+    t0 = time.perf_counter()
+    t5 = tools_crushtool(device, card, gp_text)
+    emit({"phase": "tools_crushtool", "s": time.perf_counter() - t0, **t5})
     torch.cuda.empty_cache()
 
     # 6. the cluster step, one pool after the other
@@ -3526,6 +4229,12 @@ def main() -> int:
         plugin_k1 += pp["k1_launches"]
         plugin_k2 += pp["k2_launches"]
         torch.cuda.empty_cache()
+    # 8b. bench_sweep over the jax and jerasure codecs
+    t0 = time.perf_counter()
+    t8 = tools_bench_sweep(device, card)
+    emit({"phase": "tools_bench_sweep", "s": time.perf_counter() - t0, **t8})
+    check_held("8b bench_sweep", t8["launch_shapes"], held)
+    torch.cuda.empty_cache()
 
     # 9. numbers
     t1 = time_k1(shapes, card)
@@ -3538,7 +4247,11 @@ def main() -> int:
     # 10. the process cluster: daemons on the CPU, the client on the card
     # (its counts are read around each step inside)
     pc = process_cluster(device, card)
+    t10 = pc.pop("_tools")
     emit({"phase": "process_cluster", **pc})
+    emit({"phase": "tools_rados",
+          "s": sum(st["s"] for st in t10["steps"].values()), **t10})
+    check_held("10b rados", t10["launch_shapes"], held)
     emit({"phase": "pc_csum_timing", **pc_csum_timing(device, card)})
     torch.cuda.empty_cache()
 
@@ -3552,13 +4265,20 @@ def main() -> int:
         p11_k1 += th["k1_launches"]
         torch.cuda.empty_cache()
     bt = p11_block_tier(device, card)
+    t11 = bt.pop("_tools")
     bt["gpu"] = card
     emit({"phase": "block_tier", **bt})
-    p11_k1 += bt["k1_launches"]
+    emit({"phase": "tools_rbd",
+          "s": sum(st["s"] for st in t11["steps"].values()), **t11})
+    check_held("11d rbd", t11["launch_shapes"], held)
+    p11_k1 += bt["k1_launches"] + t11["k1_launches"]
     torch.cuda.empty_cache()
     bal = p11_balancer(device, card)
+    t11u = bal.pop("_tools")
     bal["gpu"] = card
     emit({"phase": "balancer", **bal})
+    emit({"phase": "tools_osdmaptool_upmap",
+          "s": sum(st["s"] for st in t11u["steps"].values()), **t11u})
 
     # 12. the sharded data plane over a mesh of cells on the card (each
     # run's counts are read around it inside)
@@ -3579,8 +4299,25 @@ def main() -> int:
                       ("serve", p13_serve), ("drill", p13_drill)):
         t0 = time.perf_counter()
         p13[name] = leg(device, card)
+        tools13 = p13[name].pop("_tools", None)
         emit({"phase": f"p13_{name}", "s": time.perf_counter() - t0,
               **p13[name], "gpu": card})
+        if tools13 is not None:
+            # 13e, on the S3 leg's gateway: its steps are the leg's
+            for tool in ("radosgw_admin", "mgr"):
+                tsteps = {k: v for k, v in p13[name]["steps"].items()
+                          if k.startswith(f"tools_{tool}")}
+                emit({"phase": f"tools_{tool}",
+                      "s": sum(st["s"] for st in tsteps.values()),
+                      "steps": tsteps, "launch_shapes": shapes_of(tsteps),
+                      **({"user": tools13["user"],
+                          "bucket_stats": tools13["bucket_stats"],
+                          "limit_check": tools13["limit_check"]}
+                         if tool == "radosgw_admin" else
+                         {k: v for k, v in tools13.items()
+                          if k not in ("user", "bucket_stats",
+                                       "limit_check")}),
+                      "gpu": card})
         torch.cuda.empty_cache()
     p13_k1 = sum(st["k1"] for res in p13.values()
                  for st in res["steps"].values())
@@ -3604,7 +4341,7 @@ def main() -> int:
          "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
          plugin_k1 + pc["k1_launches"] + p11_k1 +
          sum(c["k1_launches"] for c in p12c.values()) + p12s["k1_launches"] +
-         p13_k1,
+         p13_k1 + t8["k1_launches"] + t10["k1_launches"],
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -3613,7 +4350,7 @@ def main() -> int:
          "source": "ceph_tpu_torch/csrc/gf_bitplane.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:34",
          "launches": steps["bytes"]["k2_launches"] + plugin_k2 +
-         p12s["k2_launches"],
+         p12s["k2_launches"] + t8["k2_launches"],
          "max_abs_err": max(errs2.values()),
          "ms": enc2["ms"], "plain_ms": enc2["plain_ms"],
          "bound_ms": enc2["bound_ms"], "bound_by": enc2["bound_by"],
@@ -3622,7 +4359,7 @@ def main() -> int:
          "source": "ceph_tpu_torch/csrc/ragged_fused.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:83",
          "launches": zw["k3_launches"] + pc["k3_launches"] +
-         p12r["launches"] + p13_k3,
+         p12r["launches"] + p13_k3 + t10["k3_launches"],
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],

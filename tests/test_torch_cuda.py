@@ -1036,3 +1036,80 @@ def test_bucket_on_rs83_launches_k1_per_dispatch_and_equals_the_cpu(
     assert want[2] == 0
     assert out == want[0]
     assert state == want[1]
+
+
+# ------------------------------------------------- the operator's tools --
+
+def _tool(main, argv):
+    import contextlib
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _tool_map(tmp_path):
+    """A 12-host x 4-OSD straw2 map with a host-level replicated rule,
+    written as a cluster spec of two pools."""
+    import json
+    from ceph_tpu_torch.placement.builder import TYPE_HOST, \
+        build_flat_cluster
+    from ceph_tpu_torch.placement.crush_map import (
+        RULE_CHOOSELEAF_FIRSTN, RULE_EMIT, RULE_TAKE, Rule)
+    cmap, root = build_flat_cluster(n_hosts=12, osds_per_host=4, seed=1,
+                                    weight_jitter=True)
+    cmap.add_rule(Rule(steps=[(RULE_TAKE, root, 0),
+                              (RULE_CHOOSELEAF_FIRSTN, 0, TYPE_HOST),
+                              (RULE_EMIT, 0, 0)]))
+    crush = tmp_path / "map.json"
+    crush.write_text(json.dumps(cmap.to_spec()))
+    spec = tmp_path / "cluster.json"
+    spec.write_text(json.dumps({
+        "crush": cmap.to_spec(),
+        "pools": [{"id": p, "type": 1, "size": 3, "pg_num": 4096,
+                   "crush_rule": 0} for p in (1, 2)],
+        "osds": {"down": [3], "out": [7]}}))
+    return str(crush), str(spec)
+
+
+def test_crushtool_and_osdmaptool_on_the_card_print_the_cpus_text(
+        card, tmp_path):
+    from ceph_tpu_torch.tools import crushtool, osdmaptool
+    crush, spec = _tool_map(tmp_path)
+    runs = [
+        (crushtool.main, ["--infn", crush, "--test", "--min-x", "0",
+                          "--max-x", "9999", "--num-rep", "3",
+                          "--show-utilization", "--show-statistics",
+                          "--show-mappings"]),
+        (osdmaptool.main, [spec, "--test-map-pgs"]),
+        (osdmaptool.main, [spec, "--upmap", str(tmp_path / "up.json")])]
+    for main, argv in runs:
+        got = _tool(main, argv + ["--device", "cuda"])
+        want = _tool(main, argv + ["--device", "cpu"])
+        assert got[0] == want[0] == 0
+        assert got[1] == want[1] and got[1]
+
+
+def test_bench_sweep_on_the_card_launches_per_dispatch(card):
+    """bench_sweep's rows and skipped cells on the card equal the CPU's;
+    K1 and K2 launch, and no plain version runs on the card."""
+    from ceph_tpu_torch.tools import bench_sweep
+    argv = ["--plugins", "jax,jerasure", "--sizes", "4096,65536",
+            "--iters", "2", "--batch", "4"]
+    plain = (xor_kernel.plain_runs, gf_pallas.plain_runs)
+    k1, k2 = xor_kernel.launches, gf_pallas.launches
+    got = _tool(bench_sweep.main, argv + ["--device", "cuda"])
+    assert (xor_kernel.plain_runs, gf_pallas.plain_runs) == plain
+    assert xor_kernel.launches > k1 and gf_pallas.launches > k2
+    want = _tool(bench_sweep.main, argv + ["--device", "cpu"])
+    assert got[0] == want[0] == 0
+
+    def rows(text):
+        return [ln.rsplit(",", 1)[0] for ln in text.splitlines()]
+
+    def skipped(text):
+        return [ln for ln in text.splitlines() if ln.startswith("# ")]
+
+    assert rows(got[1]) == rows(want[1])
+    assert skipped(got[2]) == skipped(want[2])

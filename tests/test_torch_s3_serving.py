@@ -326,20 +326,33 @@ def serve_cluster(tmp_path_factory):
 
 def test_bucket_reshard_and_limit_check_over_daemons(serve_cluster):
     """::test_bucket_reshard_and_limit_check_over_daemons, through the
-    gateway calls that ``radosgw-admin bucket reshard`` and ``bucket
-    limit check`` make (the CLI verbs are not ported yet)."""
+    port's ``radosgw-admin bucket limit check`` and ``bucket reshard``
+    (``ceph rgw POOL ...``, the reference's passthrough into the same
+    verbs, waits for ``ceph_cli``: its ``bucket stats`` runs here through
+    ``radosgw-admin`` itself)."""
+    import io
+    import json
+    from ceph_tpu_torch.tools.radosgw_admin import main as rgw_main
     d, _v = serve_cluster
     rc = PORT.remote.RemoteCluster(d)
     try:
-        gw = PORT.gw.RGWGateway(PORT.remote_ioctx.RemoteIoCtx(rc, "rep"))
+        io_ = PORT.remote_ioctx.RemoteIoCtx(rc, "rep")
+        gw = PORT.gw.RGWGateway(io_)
         b = gw.create_bucket("wire-shards", num_shards=2)
         for i in range(12):
             b.put_object(f"obj{i:02d}", b"payload-%d" % i)
-        rows = {r["bucket"]: r for r in
-                gw.bucket_limit_check(max_entries_per_shard=4)}
+        buf = io.StringIO()
+        assert rgw_main(["bucket", "limit", "check",
+                         "--max-entries", "4"],
+                        ioctx=io_, out=buf) == 0
+        rows = {r["bucket"]: r for r in json.loads(buf.getvalue())}
         assert rows["wire-shards"]["num_shards"] == 2
         assert rows["wire-shards"]["fill_status"] in ("WARN", "OVER")
-        st = gw.reshard_bucket("wire-shards", 6)
+        buf = io.StringIO()
+        assert rgw_main(["bucket", "reshard", "--bucket",
+                         "wire-shards", "--num-shards", "6"],
+                        ioctx=io_, out=buf) == 0
+        st = json.loads(buf.getvalue())
         assert st["entries"] == 12 and st["num_shards"] == 6
         nb = gw.bucket("wire-shards")
         assert [c["key"] for c in nb.list_objects(max_keys=100)
@@ -347,6 +360,12 @@ def test_bucket_reshard_and_limit_check_over_daemons(serve_cluster):
         for i in range(12):
             assert nb.get_object(f"obj{i:02d}")[0] == b"payload-%d" % i
         assert sum(nb.shard_entry_counts()) == 12
+        buf = io.StringIO()
+        assert rgw_main(["bucket", "stats", "--bucket", "wire-shards"],
+                        ioctx=io_, out=buf) == 0
+        stats = json.loads(buf.getvalue())
+        assert stats["wire-shards"]["num_objects"] == 12
+        assert stats["wire-shards"]["num_shards"] == 6
     finally:
         rc.close()
 
