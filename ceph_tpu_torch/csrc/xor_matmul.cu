@@ -3,32 +3,79 @@
 //
 //     out[b, r, w] = XOR_c ( masks[b or 0, r, c] & words[b, c, w] )
 //
-// Replaces the Pallas TPU kernel ceph_tpu/ops/xor_kernel.py:_kernel (body
+// Replaces the Pallas TPU kernel ceph_tpu/ops/xor_kernel.py:76 (_kernel, body
 // _combine, launched by _xor_matmul_pallas).  Every int32 word carries 32
 // independent GF(2) lanes; the masks are data (0 or -1, one per bit-matrix
 // entry), so a new erasure signature reuses the same kernel, and a mask batch
-// of B gives every stripe of a recovery batch its own signature.
+// of B gives every stripe of a recovery batch its own signature.  XOR is
+// exact and associative: any order of the contraction gives the same bits.
 //
-// What bounds it on an H100 SXM, at the RS(8,3) encode shape of the smoke
-// (words [512, 64, 4096] -> out [512, 24, 4096] int32):
-//   * bytes: each input word read once, each output word written once:
-//     738,197,504 B, 0.220 ms at 3.35 TB/s (HBM3, NVIDIA data sheet);
-//   * integer work: R*C*W*B = 3.22e9 mask-AND-XOR steps, one LOP3 each.  A
-//     GH100 SM has 64 INT32 lanes (H100 architecture white paper); the data
-//     sheet's 67 TFLOP/s FP32 = 132 SMs x 128 lanes x 2 x 1.98 GHz gives the
-//     clock, so 132 x 64 x 1.98e9 = 16.7e12 32-bit logic ops/s: 0.193 ms.
-// The bytes bound it, but the integer work sits only ~15% below, so a kernel
-// that ANDs every mask entry is close to both.  The design: each block owns
-// one batch row b and a tile of words; its [R, C] masks live in shared memory
-// transposed ([C][Rp]), so one 16-byte broadcast load feeds four rows; every
-// thread streams its word column with 16-byte loads (four in flight) and keeps
-// the R accumulators in registers, so each data word leaves device memory once
-// per group of <= 32 rows.  Skipping all-zero mask entries (about half of a
-// Cauchy or Vandermonde bit-matrix) and TMA/cp.async staging are later work.
+// What bounds it on an H100 SXM:
+//   * wide shapes, bytes.  The RS(8,3) encode [512, 64, 4096] -> 24 rows
+//     moves 738,197,504 B, 0.220 ms at 3.35 TB/s (HBM3, NVIDIA data sheet);
+//     its R*C*W*B = 3.22e9 mask-AND-XOR steps are one LOP3 each, 0.193 ms at
+//     132 SMs x 64 INT32 lanes x 1.98 GHz (H100 white paper, data sheet), so
+//     the copies and the LOP3 pipe must both stay near full at once;
+//   * 4 KiB stripe units ([1..256, 64 or 88, 128]), latency over the launch
+//     floor: an empty kernel at this kernel's grid and shared memory takes
+//     1.2-1.4 us by graph replay (kernel_timing.py --kernel k1), against a
+//     byte bound of 0.02-3.4 us.  Above the floor sit a block's entry, the
+//     copy of its slab and masks, its contraction on one SM, and the store.
+// Staging the words with cp.async copies issued by every thread lost to the
+// first port's direct 16-byte loads at wide W: the warps that contract also
+// issued the copies, and the copies' issue stalled their LOP3 stream; at
+// 4 KiB units the issue of a thread's slab and mask copies, not their
+// flight, kept the first XOR waiting (clock64 stamps in a development
+// build).
 //
-// Plain C interface, bound with ctypes (ceph_tpu_torch/ops/xor_kernel.py).
-// The launch goes on the caller's stream and never synchronizes; the return
-// value is cudaGetLastError() after the launch (0 = launched).
+// The design, one answer per cause:
+//   * the TMA unit moves the words.  On the 16-byte path thread 0 issues a
+//     stage as cp.async.bulk copies, one a plane segment, or one for the
+//     whole slab where a tile is the whole row (a 4 KiB stripe unit's
+//     [C, 128] slab, 32 KiB at C = 64, is one copy), counted on the slot's
+//     mbarrier.  No other thread issues a copy: the warps wait on the
+//     mbarrier and contract.  At wide W a ring of two 32 KiB stages (16 KiB
+//     per stripe; three 16 KiB ones where two would keep an SM from its
+//     three or four blocks) keeps the next chunk in flight while one is
+//     contracted, and a block barrier frees a slot before its refill;
+//   * masks staged cheaply, once.  A block needs its row group's RG rows
+//     of its masks, [RG, C] and contiguous: a few 16-byte cp.async copies
+//     put them in scratch that is free until then (the fold's buffer, or the
+//     ring's last slot, whose stage is issued after), and the block
+//     transposes them to [C][RG] in shared memory by a 2-D warp x lane
+//     mapping with no division.  Elsewhere (the scalar path, rows off 16
+//     bytes) 4-byte copies transpose them on the way, 8 rows x 4 planes a
+//     warp instruction, distinct banks at RG = 8 or 24.  A 16-byte
+//     broadcast load of a mask row feeds four output rows;
+//   * every thread at work at narrow W.  A block is four warps; a tile is 1,
+//     2 or 4 warps wide (32 lanes x 4 words each).  Where W leaves warps
+//     over, they split the contraction: warp ks XORs planes ks, ks + KS, ...
+//     for the same words; the partial sums meet in shared memory after one
+//     barrier, and each warp folds and stores its share of the rows;
+//   * a grid that fills the card.  One block contracts one work item (b,
+//     tile, row group), so a block's masks are staged once and its item
+//     needs no bookkeeping; a batch too small to fill half the SMs is cut
+//     into row groups of 8, so one stripe spreads over three SMs.  (A
+//     persistent grid walking items, with shared masks staged once per
+//     block, measured no faster at wide W and slower per stripe.);
+//   * registers do the arithmetic: RG rows x VEC words of accumulators, one
+//     LOP3 per mask-AND-XOR, the stage read with 16-byte shared loads; the
+//     block's bookkeeping stays in 32-bit scalars, or the accumulators spill.
+// Kept from the first port: the scalar path for a words or out pointer off
+// 16-byte alignment or W % 4 != 0 (jerasure's w = 7 and 6 give planes of 37
+// and 43 words; there every thread copies, 4 bytes at a time, exactly the
+// words it contracts, zero past the edge), 64-bit offsets, the ragged edge
+// masked in the kernel, the launch on the caller's stream with no
+// synchronize.  Skipping all-zero mask entries is later work.
+//
+// The launch plan (VEC, RG, tile width, planes a stage, stages; the grid is
+// one block an item) is chosen by the wrapper,
+// ceph_tpu_torch/ops/xor_kernel.py:plan; this file checks it, lays out
+// shared memory from it (ceph_xor_matmul_smem_bytes) and refuses a plan that
+// does not fit.  Plain C interface, bound with ctypes; the return value is
+// cudaGetLastError() after the launch (0 = launched).  ceph_xor_matmul_floor
+// launches an empty kernel at the same grid, block and shared memory: the
+// launch floor K1's time is measured against.
 
 #include <climits>
 #include <cstdint>
@@ -36,27 +83,149 @@
 
 namespace {
 
-constexpr int kThreads = 128;        // threads per block
-constexpr int kUnroll = 4;           // data loads in flight per thread
-constexpr int kMaxSmem = 48 * 1024;  // dynamic shared memory without opt-in
+constexpr int kThreads = 128;        // four warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxDevices = 64;
+constexpr int kMaxStages = 4;
+constexpr int kBarInts = 16;         // the ring's mbarriers, 64 bytes
 
-// Rows held in registers at once: the smallest group that covers R, capped
-// at 32; R is padded with zero mask rows up to a multiple of the group.
-int row_group(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : R <= 24 ? 24 : 32; }
-int padded_rows(int R) { int g = row_group(R); return (R + g - 1) / g * g; }
+// blocks an SM must hold at once: caps the registers per thread
+constexpr int min_blocks(int RG, int VEC) { return RG * VEC >= 96 ? 3 : 4; }
+
+// A plan the wrapper chose, with what follows from it.  Shared memory, in
+// ints: the ring's mbarriers, the item's masks transposed [C][RG], the ring
+// of stages [stages][cc][tw], and the four warps' partial sums [4][RG][32]
+// [VEC] where the warps split the contraction (ks > 1).
+struct Layout {
+    int vec, rg, ctw, cc, stages;
+    int groups, tw, ks;
+    long long tiles, items;
+    int mask_ints, data_ints, red_ints;
+    int smem() const {
+        return 4 * (kBarInts + mask_ints + data_ints + red_ints);
+    }
+};
+
+bool valid_rg(int rg) { return rg == 8 || rg == 16 || rg == 24 || rg == 32; }
+
+bool layout(long long B, int R, int C, long long W, int vec, int rg,
+            int ctw, int cc, int stages, Layout& L) {
+    if (B <= 0 || R <= 0 || C < 0 || W <= 0) return false;
+    if ((vec != 1 && vec != 4) || !valid_rg(rg)) return false;
+    if ((ctw != 1 && ctw != 2 && ctw != 4) || cc < 1 || stages < 1 ||
+        stages > kMaxStages)
+        return false;
+    L.vec = vec; L.rg = rg; L.ctw = ctw; L.cc = cc; L.stages = stages;
+    L.groups = (R + rg - 1) / rg;
+    L.tw = ctw * 32 * vec;
+    L.ks = kWarps / ctw;
+    L.tiles = (W + L.tw - 1) / L.tw;
+    L.items = B * L.tiles * L.groups;
+    const long long mask = (long long)C * rg;
+    const long long data = (long long)stages * cc * L.tw;
+    const long long red = L.ks > 1 ? (long long)kWarps * 32 * rg * vec : 0;
+    if (4 * (kBarInts + mask + data + red) > INT_MAX || L.items > INT_MAX)
+        return false;
+    L.mask_ints = static_cast<int>(mask);
+    L.data_ints = static_cast<int>(data);
+    L.red_ints = static_cast<int>(red);
+    return true;
+}
+
+int device_attr(cudaDeviceAttr a, int fallback) {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return fallback;
+    if (cudaDeviceGetAttribute(&v, a, dev) != cudaSuccess) return fallback;
+    return v;
+}
+
+// the most dynamic shared memory a block may opt in to, asked once a device
+int smem_limit() {
+    static int cache[kMaxDevices];
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+        return device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, 48 * 1024);
+    if (cache[dev] == 0)
+        cache[dev] = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 48 * 1024);
+    return cache[dev];
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// n bytes (16 or 4) from global src to shared dst, asynchronously; zero
+// filled when !in (src is then any valid address and is not read)
+template <int VEC>
+__device__ __forceinline__ void cp_async(int* dst, const int* src, bool in) {
+    if constexpr (VEC == 4) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                     :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0)
+                     : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                     :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 4 : 0)
+                     : "memory");
+    }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most n of this thread's committed groups are in flight
+__device__ __forceinline__ void cp_async_wait(int n) {
+    switch (n) {
+        case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+        case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+        case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+        default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+    }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) from global src to
+// shared dst by the TMA unit, counted on the mbarrier bar
+__device__ __forceinline__ void bulk_copy(int* dst, const int* src,
+                                          uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
 
 template <int VEC>
-__device__ __forceinline__ void load_words(const int* p, int (&d)[VEC]) {
+__device__ __forceinline__ void load_vec(const int* p, int (&d)[VEC]) {
     if constexpr (VEC == 4) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+        const int4 v = *reinterpret_cast<const int4*>(p);
         d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
     } else {
-        d[0] = __ldg(p);
+        d[0] = *p;
     }
 }
 
 template <int VEC>
-__device__ __forceinline__ void store_words(int* p, const int (&a)[VEC]) {
+__device__ __forceinline__ void store_vec(int* p, const int (&a)[VEC]) {
     if constexpr (VEC == 4) {
         *reinterpret_cast<int4*>(p) = make_int4(a[0], a[1], a[2], a[3]);
     } else {
@@ -64,8 +233,8 @@ __device__ __forceinline__ void store_words(int* p, const int (&a)[VEC]) {
     }
 }
 
-// acc[r] ^= mask[c][g0 + r] & d for one column c; mrow = &smask[c * Rp + g0]
-// is 16-byte aligned, so four rows come in one shared-memory broadcast.
+// acc[r] ^= mrow[r] & d for one plane; mrow is 16-byte aligned in shared
+// memory, so four rows come in one broadcast load
 template <int RG, int VEC>
 __device__ __forceinline__ void accumulate(int (&acc)[RG][VEC],
                                            const int* mrow,
@@ -83,117 +252,337 @@ __device__ __forceinline__ void accumulate(int (&acc)[RG][VEC],
     }
 }
 
+// acc += the stage's planes c = ks, ks + ks_n, ... < nc for this thread's
+// words d (row stride tw), under the mask rows m (row stride RG)
 template <int RG, int VEC>
-__global__ void __launch_bounds__(kThreads)
-xor_matmul_kernel(const int* __restrict__ masks,
-                  const int* __restrict__ words, int* __restrict__ out,
-                  long long tiles, int per_batch, int R, int Rp, int C,
-                  long long W) {
-    extern __shared__ int4 smem_raw[];
-    int* smask = reinterpret_cast<int*>(smem_raw);  // [C][Rp], transposed
-
-    const long long b = blockIdx.x / tiles;
-    const long long tile = blockIdx.x - b * tiles;
-    const int* mb = masks + (per_batch ? b * R * (long long)C : 0LL);
-    for (int i = threadIdx.x; i < C * Rp; i += kThreads) {
-        const int c = i / Rp;
-        const int r = i - c * Rp;
-        smask[i] = r < R ? mb[(long long)r * C + c] : 0;
-    }
-    __syncthreads();
-
-    // the ragged edge is masked here: W % VEC == 0, so a thread whose
-    // first word is in range owns VEC words in range
-    const long long w0 = (tile * kThreads + threadIdx.x) * VEC;
-    if (w0 >= W) return;
-    const int* src = words + b * C * W + w0;
-    int* dst = out + b * (long long)R * W + w0;
-
-    for (int g0 = 0; g0 < Rp; g0 += RG) {
-        int acc[RG][VEC];
-#pragma unroll
-        for (int r = 0; r < RG; ++r)
-#pragma unroll
-            for (int v = 0; v < VEC; ++v) acc[r][v] = 0;
-
-        int c = 0;
-        for (; c + kUnroll <= C; c += kUnroll) {
-            int d[kUnroll][VEC];
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u)
-                load_words<VEC>(src + (c + u) * W, d[u]);
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u)
-                accumulate<RG, VEC>(acc, smask + (c + u) * Rp + g0, d[u]);
-        }
-        for (; c < C; ++c) {
-            int d[VEC];
-            load_words<VEC>(src + c * W, d);
-            accumulate<RG, VEC>(acc, smask + c * Rp + g0, d);
-        }
-#pragma unroll
-        for (int r = 0; r < RG; ++r)
-            if (g0 + r < R) store_words<VEC>(dst + (g0 + r) * W, acc[r]);
+__device__ __forceinline__ void contract(int (&acc)[RG][VEC], const int* d,
+                                         int tw, const int* m, int ks,
+                                         int ks_n, int nc) {
+#pragma unroll 2
+    for (int c = ks; c < nc; c += ks_n) {
+        int dv[VEC];
+        load_vec<VEC>(d + c * tw, dv);
+        accumulate<RG, VEC>(acc, m + c * RG, dv);
     }
 }
 
+// The item's mask rows [0, RG) (live ones from src, row stride C, the rest
+// zero) into dst as [C][RG], one 4-byte copy a word: each warp instruction
+// takes 8 rows x 4 planes, which meet in distinct banks at RG = 8 or 24,
+// with no division.  The scalar path's staging, and the fallback of the
+// 16-byte one where the row block is not 16-byte aligned or does not fit.
 template <int RG>
-cudaError_t launch(int vec, const int* masks, const int* words, int* out,
-                   long long B, int per_batch, int R, int Rp, int C,
+__device__ __forceinline__ void stage_masks_t(int* dst, const int* src,
+                                              int live, int C, int warp,
+                                              int lane) {
+    const int r_lo = lane & 7, c_lo = lane >> 3;
+    for (int r0 = 0; r0 < RG; r0 += 8)
+        for (int c0 = 4 * warp; c0 < C; c0 += 4 * kWarps) {
+            const int r = r0 + r_lo, c = c0 + c_lo;
+            if (c < C)
+                cp_async<1>(dst + c * RG + r,
+                            r < live ? src + (long long)r * C + c : src,
+                            r < live);
+        }
+}
+
+// The item is contracted.  With the contraction split (ks_n > 1) every
+// warp puts its partial sums in sred ([warp][RG][32][VEC]), and warp ks
+// folds the ks_n partials of rows [ks, ks + 1) x RG / ks_n and stores
+// them; else each thread stores its rows.
+template <int RG, int VEC>
+__device__ __forceinline__ void store_item(const int (&acc)[RG][VEC],
+                                           int* sred, int ks, int ks_n,
+                                           int ct, int ctw, int lane,
+                                           bool live, int* dst, int rows,
+                                           long long W) {
+    if (ks_n == 1) {
+        if (live) {
+#pragma unroll
+            for (int r = 0; r < RG; ++r)
+                if (r < rows) store_vec<VEC>(dst + r * W, acc[r]);
+        }
+        return;
+    }
+    int* mine = sred + (ks * ctw + ct) * (RG * 32 * VEC) + lane * VEC;
+#pragma unroll
+    for (int r = 0; r < RG; ++r) store_vec<VEC>(mine + r * 32 * VEC, acc[r]);
+    __syncthreads();
+    const int per = RG / ks_n;
+    const int* col0 = sred + ct * (RG * 32 * VEC) + lane * VEC;
+    const int part = ctw * RG * 32 * VEC;       // one warp's partials
+#pragma unroll 2
+    for (int r = ks * per; r < (ks + 1) * per; ++r) {
+        int v[kWarps][VEC];
+#pragma unroll
+        for (int j = 0; j < kWarps; ++j)
+            if (j < ks_n) load_vec<VEC>(col0 + j * part + r * 32 * VEC, v[j]);
+#pragma unroll
+        for (int j = 1; j < kWarps; ++j)
+            if (j < ks_n)
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) v[0][e] ^= v[j][e];
+        if (live && r < rows) store_vec<VEC>(dst + r * W, v[0]);
+    }
+}
+
+// One block contracts one item: batch row b, tile `tile` (words
+// [tile * tw, +tw)), row group g (rows [g * RG, +RG)), over the C planes
+// in chunks of cc, a ring of `stages` chunks in shared memory.
+template <int RG, int VEC>
+__global__ void __launch_bounds__(kThreads, min_blocks(RG, VEC))
+xor_matmul_kernel(const int* __restrict__ masks,
+                  const int* __restrict__ words, int* __restrict__ out,
+                  int per_batch, int tiles, int groups, int R, int C,
+                  long long W, int ctw_log2, int cc, int stages,
+                  int data_ints) {
+    extern __shared__ int4 smem_raw[];
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+    int* mT = reinterpret_cast<int*>(smem_raw) + kBarInts;     // [C][RG]
+    int* sdata = mT + C * RG;
+    int* sred = sdata + data_ints;
+
+    const int tw = (32 * VEC) << ctw_log2;      // words of a tile
+    const int ctw = 1 << ctw_log2;
+    const int ks_n = kWarps >> ctw_log2;        // warps splitting C
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int ks = warp & (ks_n - 1);
+    const int ct = warp >> (2 - ctw_log2);
+    const int col = (ct * 32 + lane) * VEC;
+    const int nchunks = C > 0 ? (C + cc - 1) / cc : 1;
+
+    const int bt = blockIdx.x / groups;
+    const int b = bt / tiles;
+    const long long w0 = (long long)(bt - b * tiles) * tw;
+    const int g0 = (blockIdx.x - bt * groups) * RG;
+    const int rows = min(RG, R - g0);
+    // this item's mask rows, [rows][C], contiguous
+    const int* mb = masks + ((per_batch ? (long long)b * R : 0LL) + g0) * C;
+    const int* src0 = words + (long long)b * C * W + w0;   // plane 0
+
+    int acc[RG][VEC];
+#pragma unroll
+    for (int r = 0; r < RG; ++r)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[r][v] = 0;
+
+    if constexpr (VEC == 4) {
+        // The TMA unit stages the planes: thread 0 issues a stage as one
+        // bulk copy (the planes are contiguous where the tile is the whole
+        // row) or one a plane, counted on the slot's mbarrier.
+        const uint32_t bar0 = smem_addr(bars);
+        const uint32_t seg =
+            static_cast<uint32_t>(min((long long)tw, W - w0)) * 4;
+        auto issue = [&](int t) {
+            const int c0 = t * cc;
+            const int nc = min(cc, C - c0);
+            const int slot = t % stages;
+            const uint32_t bar = bar0 + 8 * slot;
+            int* dst = sdata + slot * cc * tw;
+            const int* src = src0 + (long long)c0 * W;
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            mbar_expect(bar, nc * seg);
+            if (W == tw) {
+                if (nc > 0) bulk_copy(dst, src, nc * seg, bar);
+            } else {
+                for (int c = 0; c < nc; ++c)
+                    bulk_copy(dst + c * tw, src + c * W, seg, bar);
+            }
+        };
+        // The masks: the item's row block in a few 16-byte copies into
+        // scratch free until they are transposed (the fold's buffer, or the
+        // ring's last slot, whose stage is issued after the transpose).
+        int* raw = ks_n > 1 ? sred : sdata + (stages - 1) * cc * tw;
+        const int raw_ints = ks_n > 1 ? kWarps * 32 * RG * VEC : cc * tw;
+        const bool rowcopy = (ks_n > 1 || stages > 1) &&
+                             rows * C <= raw_ints && (rows * C) % 4 == 0 &&
+                             (reinterpret_cast<uintptr_t>(mb) & 15) == 0;
+        if (tid == 0) {
+            for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8 * s, 1);
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        }
+        __syncthreads();
+        if (rowcopy) {
+            for (int i = 4 * tid; i < rows * C; i += 4 * kThreads)
+                cp_async<4>(raw + i, mb + i, true);
+        } else {
+            stage_masks_t<RG>(mT, mb, rows, C, warp, lane);
+        }
+        cp_async_commit();
+        const int early = min(rowcopy && ks_n == 1 ? stages - 1 : stages,
+                              nchunks);
+        if (tid == 0)
+            for (int t = 0; t < early; ++t) issue(t);
+        cp_async_wait(0);
+        __syncthreads();            // the masks landed for every thread
+        if (rowcopy) {
+            for (int r = warp; r < RG; r += kWarps)
+                for (int c = lane; c < C; c += 32)
+                    mT[c * RG + r] = r < rows ? raw[r * C + c] : 0;
+            __syncthreads();
+            if (tid == 0)
+                for (int t = early; t < min(stages, nchunks); ++t) issue(t);
+        }
+        uint32_t phases = 0;        // bit s: the parity slot s waits for
+        for (int t = 0; t < nchunks; ++t) {
+            const int slot = t % stages;
+            mbar_wait(bar0 + 8 * slot, (phases >> slot) & 1);
+            phases ^= 1u << slot;
+            contract<RG, VEC>(acc, sdata + slot * cc * tw + col, tw,
+                              mT + t * cc * RG, ks, ks_n,
+                              min(cc, C - t * cc));
+            if (t + stages < nchunks) {
+                __syncthreads();    // every warp is done with the slot
+                if (tid == 0) issue(t + stages);
+            }
+        }
+    } else {
+        // The scalar path: every thread copies, 4 bytes at a time, exactly
+        // the words it contracts (zero past the ragged edge), so its own
+        // cp.async.wait_group makes a stage visible to it; the masks come
+        // in the first group, and one barrier makes them visible to all.
+        stage_masks_t<RG>(mT, mb, rows, C, warp, lane);
+        const bool ok = w0 + col < W;
+        auto issue = [&](int t) {
+            if (t < nchunks) {
+                const int c0 = t * cc;
+                const int nc = min(cc, C - c0);
+                const int* src = src0 + (long long)c0 * W + col;
+                int* dst = sdata + (t % stages) * cc * tw + col;
+                for (int c = ks; c < nc; c += ks_n)
+                    cp_async<1>(dst + c * tw, ok ? src + c * W : words, ok);
+            }
+            cp_async_commit();
+        };
+        for (int t = 0; t + 1 < stages; ++t) issue(t);
+        for (int t = 0; t < nchunks; ++t) {
+            issue(t + stages - 1);
+            cp_async_wait(stages - 1);
+            if (t == 0) __syncthreads();
+            contract<RG, VEC>(acc, sdata + (t % stages) * cc * tw + col, tw,
+                              mT + t * cc * RG, ks, ks_n,
+                              min(cc, C - t * cc));
+        }
+        cp_async_wait(0);
+    }
+    store_item<RG, VEC>(acc, sred, ks, ks_n, ct, ctw, lane, w0 + col < W,
+                        out + ((long long)b * R + g0) * W + w0 + col, rows,
+                        W);
+}
+
+// The launch floor: K1's grid, block and shared memory, no work.
+__global__ void __launch_bounds__(kThreads) xor_matmul_floor_kernel() {}
+
+// Opts a kernel in to the device's shared-memory limit, once a device (a
+// call captured into a CUDA graph then asks nothing).
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, bool (&done)[kMaxDevices]) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    const bool cached = cudaGetDevice(&dev) == cudaSuccess && dev >= 0 &&
+                        dev < kMaxDevices;
+    if (cached && done[dev]) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit());
+    if (e == cudaSuccess && cached) done[dev] = true;
+    return e;
+}
+
+bool floor_allowed[kMaxDevices];
+
+template <int RG, int VEC>
+cudaError_t launch(bool floor, const Layout& L, const int* masks,
+                   const int* words, int* out, int per_batch, int R, int C,
                    long long W, cudaStream_t stream) {
-    const long long tiles = (W + (long long)kThreads * vec - 1) /
-                            ((long long)kThreads * vec);
-    if (B * tiles > INT_MAX) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(B * tiles));
-    const size_t smem = static_cast<size_t>(C) * Rp * sizeof(int);
-    if (vec == 4)
-        xor_matmul_kernel<RG, 4><<<grid, kThreads, smem, stream>>>(
-            masks, words, out, tiles, per_batch, R, Rp, C, W);
+    auto kernel = xor_matmul_kernel<RG, VEC>;
+    static bool allowed[kMaxDevices];
+    const int smem = L.smem();
+    const cudaError_t e = floor
+        ? allow_smem(xor_matmul_floor_kernel, smem, floor_allowed)
+        : allow_smem(kernel, smem, allowed);
+    if (e != cudaSuccess) return e;
+    int ctw_log2 = 0;
+    while ((1 << ctw_log2) < L.ctw) ++ctw_log2;
+    const unsigned grid = static_cast<unsigned>(L.items);     // an item each
+    if (floor)
+        xor_matmul_floor_kernel<<<grid, kThreads, smem, stream>>>();
     else
-        xor_matmul_kernel<RG, 1><<<grid, kThreads, smem, stream>>>(
-            masks, words, out, tiles, per_batch, R, Rp, C, W);
+        kernel<<<grid, kThreads, smem, stream>>>(
+            masks, words, out, per_batch, static_cast<int>(L.tiles),
+            L.groups, R, C, W, ctw_log2, L.cc, L.stages, L.data_ints);
     return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t launch_rg(bool floor, const Layout& L, const int* m,
+                      const int* w, int* o, int pb, int R, int C,
+                      long long W, cudaStream_t s) {
+    switch (L.rg) {
+        case 8:  return launch<8, VEC>(floor, L, m, w, o, pb, R, C, W, s);
+        case 16: return launch<16, VEC>(floor, L, m, w, o, pb, R, C, W, s);
+        case 24: return launch<24, VEC>(floor, L, m, w, o, pb, R, C, W, s);
+        default: return launch<32, VEC>(floor, L, m, w, o, pb, R, C, W, s);
+    }
 }
 
 bool aligned16(const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory the kernel needs for an [R, C] mask matrix, and the most it
-// takes; the wrapper refuses larger matrices before launching.
-int ceph_xor_matmul_smem_bytes(int R, int C) {
-    return padded_rows(R) * C * static_cast<int>(sizeof(int));
-}
-
-int ceph_xor_matmul_smem_limit(void) { return kMaxSmem; }
-
-// masks [Bm, R, C] int32 (Bm = B when per_batch, else 1), words [B, C, W]
-// int32, out [B, R, W] int32, all contiguous on the current device.
-int ceph_xor_matmul_w32(const void* masks, const void* words, void* out,
-                        long long B, int per_batch, int R, int C,
-                        long long W, void* stream) {
-    if (B <= 0 || R <= 0 || C < 0 || W <= 0)
+// K1 (or, with floor, the empty kernel at the same launch) under a plan
+int run(bool floor, const void* masks, const void* words, void* out,
+        long long B, int per_batch, int R, int C, long long W, int vec,
+        int rg, int ctw, int cc, int stages, void* stream) {
+    Layout L;
+    if (!layout(B, R, C, W, vec, rg, ctw, cc, stages, L) ||
+        L.smem() > smem_limit())
         return cudaErrorInvalidValue;
-    if (ceph_xor_matmul_smem_bytes(R, C) > kMaxSmem)
+    if (vec == 4 && (W % 4 != 0 ||
+                     (!floor && !(aligned16(words) && aligned16(out)))))
         return cudaErrorInvalidValue;
-    const int Rp = padded_rows(R);
-    const int vec = (W % 4 == 0 && aligned16(words) && aligned16(out)) ? 4 : 1;
+    if (!floor && (masks == nullptr || words == nullptr || out == nullptr))
+        return cudaErrorInvalidValue;
     const int* m = static_cast<const int*>(masks);
     const int* w = static_cast<const int*>(words);
     int* o = static_cast<int*>(out);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err;
-    switch (row_group(R)) {
-        case 8:  err = launch<8>(vec, m, w, o, B, per_batch, R, Rp, C, W, s); break;
-        case 16: err = launch<16>(vec, m, w, o, B, per_batch, R, Rp, C, W, s); break;
-        case 24: err = launch<24>(vec, m, w, o, B, per_batch, R, Rp, C, W, s); break;
-        default: err = launch<32>(vec, m, w, o, B, per_batch, R, Rp, C, W, s); break;
-    }
-    return static_cast<int>(err);
+    const int pb = per_batch ? 1 : 0;
+    return static_cast<int>(
+        vec == 4 ? launch_rg<4>(floor, L, m, w, o, pb, R, C, W, s)
+                 : launch_rg<1>(floor, L, m, w, o, pb, R, C, W, s));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block takes under a plan (-1 for a plan the
+// kernel refuses), and the most a block may take on the current device.
+int ceph_xor_matmul_smem_bytes(int R, int C, int vec, int rg, int ctw,
+                               int cc, int stages) {
+    Layout L;
+    return layout(1, R, C, 1, vec, rg, ctw, cc, stages, L) ? L.smem() : -1;
+}
+
+int ceph_xor_matmul_smem_limit(void) { return smem_limit(); }
+
+// masks [Bm, R, C] int32 (Bm = B when per_batch, else 1), words [B, C, W]
+// int32, out [B, R, W] int32, all contiguous on the current device; the
+// plan (vec, rg, ctw, cc, stages) from ops/xor_kernel.py:plan.
+int ceph_xor_matmul_w32(const void* masks, const void* words, void* out,
+                        long long B, int per_batch, int R, int C,
+                        long long W, int vec, int rg, int ctw, int cc,
+                        int stages, void* stream) {
+    return run(false, masks, words, out, B, per_batch, R, C, W, vec, rg, ctw,
+               cc, stages, stream);
+}
+
+// The empty kernel launched as ceph_xor_matmul_w32 would launch K1.
+int ceph_xor_matmul_floor(long long B, int per_batch, int R, int C,
+                          long long W, int vec, int rg, int ctw, int cc,
+                          int stages, void* stream) {
+    return run(true, nullptr, nullptr, nullptr, B, per_batch, R, C, W, vec,
+               rg, ctw, cc, stages, stream);
 }
 
 }  // extern "C"

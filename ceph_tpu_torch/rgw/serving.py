@@ -820,7 +820,8 @@ def run_serve(cfg: ServeConfig, cluster_dir: Optional[str] = None,
                                   "lim": t.qos_lim}
                          for t in tenants})
         v = Vstart(d)
-        v.start(cfg.n_osds, hb_interval=cfg.hb_interval)
+        # the OSDs' interpreters start in parallel: each imports torch
+        v.start(cfg.n_osds, hb_interval=cfg.hb_interval, together=True)
         try:
             h = S3ServeHarness(d, cfg, vstart=v)
             return h.run()

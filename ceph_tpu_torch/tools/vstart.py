@@ -147,13 +147,17 @@ class Vstart:
 
     def start_osd(self, osd_id: int, timeout: float = 30.0,
                   hb_interval: float = 0.5) -> None:
+        self._wait_sock(self._spawn_osd(osd_id, hb_interval), timeout)
+
+    def _spawn_osd(self, osd_id: int, hb_interval: float) -> str:
+        """Starts osd.``osd_id`` and returns the socket it will bind."""
         sock = os.path.join(self.dir, f"osd.{osd_id}.sock")
         self._clear_stale_sock(sock)
         self.procs[f"osd.{osd_id}"] = self._spawn(
             "osd", "--cluster-dir", self.dir, "--id", str(osd_id),
             "--hb-interval", str(hb_interval),
             log_name=f"osd.{osd_id}")
-        self._wait_sock(sock, timeout)
+        return sock
 
     @staticmethod
     def _wait_sock(path: str, timeout: float) -> None:
@@ -164,11 +168,20 @@ class Vstart:
             time.sleep(0.05)
         raise TimeoutError(f"daemon socket {path} never appeared")
 
-    def start(self, n_osds: int, hb_interval: float = 0.5) -> None:
+    def start(self, n_osds: int, hb_interval: float = 0.5,
+              together: bool = False) -> None:
+        """Starts the mons, then the OSDs one after the other; with
+        ``together`` every OSD is spawned before any is waited for, so
+        their interpreters start in parallel (each one imports torch)."""
         for r in range(self._n_mons()):
             self.start_mon(r)
-        for i in range(n_osds):
-            self.start_osd(i, hb_interval=hb_interval)
+        if not together:
+            for i in range(n_osds):
+                self.start_osd(i, hb_interval=hb_interval)
+            return
+        socks = [self._spawn_osd(i, hb_interval) for i in range(n_osds)]
+        for sock in socks:
+            self._wait_sock(sock, 30.0 + 5.0 * n_osds)
 
     def kill9(self, name: str) -> None:
         """Real SIGKILL — the Thrasher's kill_osd."""

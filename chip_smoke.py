@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (one nvcc per source, started together) and print ptxas's
      registers, shared memory and spills;
   2. hold each kernel bit-identical to its plain PyTorch version on the
-     card at the main path's shapes (K1: RS(8,3) encode, a 3-erasure
+     card at the main path's shapes, K1 also its launch plan's shared
+     memory to what the kernel lays out (K1: RS(8,3) encode, a 3-erasure
      decode, a per-stripe-signature rebuild, a ragged word count, and
      phase 10's encodes [512 | 16 | 8, 64, 32768] and 2-erasure decode
      [8, 64, 32768] -> 16 at 1 MiB chunks; K2: the
@@ -106,10 +107,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   9. time each kernel beside its bound and its plain version: device time
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
-     CUDA events (host work included); K2 also beside its launch floor,
-     an empty kernel at K2's grid replayed the same way;
+     CUDA events (host work included); K1 and K2 also beside their
+     launch floors, an empty kernel at the kernel's grid and shared
+     memory replayed the same way (K1 also at phase 13's most-launched
+     4 KiB shapes);
  10. the process cluster (bench.py's ``bench_process_cluster``):
-     ``tools/vstart`` starts one mon and 12 OSD daemon processes, each
+     ``tools/vstart`` starts one mon, then 12 OSD daemon processes
+     together (``start(..., together=True)``), each
      asked for the CPU (``--device cpu``), with an RS(8,3) bitsliced pool
      (pg_num 32, 1 MiB stripe unit, BlueStore); a ``RemoteCluster`` in
      this process, its codec on the card, runs a staged
@@ -132,12 +136,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (32 hosts x 4 OSDs) with a 3-replica pool (pg_num 2,048) and an
      RS(8,3) bitsliced pool (pg_num 512), about 100 PG replicas an OSD,
      4 MiB objects: (a) two ``Thrasher`` soaks on the card (seed 0
-     kill/revive, seed 1 netsplit; 32 objects a pool, 8 cycles), every
-     invariant held; (b) a 64 MiB RBD image in the EC pool written whole
-     in 4 MiB writes, 256 seeded 4 KiB random writes, snapshot, protect,
+     kill/revive, seed 1 netsplit; 16 objects a pool, 8 cycles), every
+     invariant held; (b) a 32 MiB RBD image in the EC pool written whole
+     in 4 MiB writes, 128 seeded 4 KiB random writes, snapshot, protect,
      clone, flatten, an unaligned shrink, every byte of image and clone
-     against a host oracle; rbd-mirror of a 64 MiB journaled image onto a
-     second ClusterSim on the card (4 x 4 MiB and 64 x 4 KiB writes,
+     against a host oracle; rbd-mirror of a 32 MiB journaled image onto a
+     second ClusterSim on the card (2 x 4 MiB and 32 x 4 KiB writes,
      replay, a second replay and a trim applying nothing); neorados's 64
      concurrent 4 MiB writes and reads; (c) ``calc_pg_upmaps`` on the
      replicated pool through the card's mapper and the balancer advisor,
@@ -166,17 +170,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      beside the unsharded launch;
  13. the gateway tier and CephFS on phase 11's stack: (a) ``RGWGateway``
      on a ``Rados`` ioctx of the RS(8,3) pool (4 KiB stripe unit, HBM
-     staging), a bucket of 8 index shards: 512 objects of phase 7's
+     staging), a bucket of 8 index shards: 128 objects of phase 7's
      zipf(1.3) size mix put, a 64 MiB multipart object in 8 MiB parts,
      listings by prefix, marker and delimiter, every object read back
      with its ETag the MD5 of its bytes, 3 OSDs killed and every object
      read degraded, out, ``recover_all`` and every object read again, an
-     online reshard from 8 to 16 shards while 64 objects are written, and
-     64 PUT/GET pairs through each of the S3 and Swift frontends on
+     online reshard from 8 to 16 shards while 32 objects are written, and
+     16 PUT/GET pairs through each of the S3 and Swift frontends on
      localhost over the same index; (b) an ``MDSCluster`` of 2 ranks,
      metadata on the 3-replica pool and data on the RS(8,3) pool in the
-     default ``FileLayout`` (4 MiB objects): 1,024 small files under 16
-     directories, 64 files of 4 MiB and one of 256 MiB written and read
+     default ``FileLayout`` (4 MiB objects): 256 small files under 16
+     directories, 16 files of 4 MiB and one of 64 MiB written and read
      back, a rename across ranks, ``MDBalancer`` moving the hot subtree,
      rank 1 restarted from its journal, 3 OSDs killed and every file
      read again; (c) ``run_serve(ServeConfig(seed=0))``, S3Serve's stock
@@ -453,13 +457,19 @@ def kernel_checks(device, shapes) -> dict:
         err = int((got.long() - want.long()).abs().max()) \
             if got.numel() else 0
         errs[name] = err
+        per_batch = masks.dim() == 3
+        plan = xor_kernel.launch_plan(m3, words, per_batch)
+        smem = xor_kernel.smem_bytes(plan, masks.shape[-2],
+                                     masks.shape[-1])[0]
         emit({"phase": "kernel_check", "kernel": "xor_matmul_w32",
               "shape": name, "masks": list(masks.shape),
               "words": list(words.shape), "max_abs_err": err,
-              "dynamic_smem_bytes": xor_kernel.smem_bytes(
-                  masks.shape[-2], masks.shape[-1])[0]})
+              "plan": plan._asdict(), "dynamic_smem_bytes": smem})
         if err != 0 or not torch.equal(got, want):
             fail(f"K1 differs from its plain version at {name}")
+        if smem != plan.smem:
+            fail(f"K1's plan at {name} reckons {plan.smem} B of shared "
+                 f"memory; the kernel lays out {smem} B")
     return errs
 
 
@@ -2088,7 +2098,7 @@ def process_cluster(device, card: str) -> dict:
     zero0 = perf("wire.zero").dump()
     v = Vstart(PC_DIR)
     t0 = time.perf_counter()
-    v.start(PC_OSDS, hb_interval=0.5)
+    v.start(PC_OSDS, hb_interval=0.5, together=True)
     times["daemons_start_s"] = time.perf_counter() - t0
     daemon_pids = {n: p.pid for n, p in v.procs.items() if n != "mon"}
     undo = contextlib.ExitStack()
@@ -2333,13 +2343,15 @@ def pc_csum_timing(device, card: str) -> dict:
 P11_REP_PGS = 2048
 P11_EC_PGS = 512
 P11_OBJ = 4 << 20             # RADOS's and RBD's object size (order 22)
-P11_IMAGE = 64 << 20         # 16 objects of 4 MiB (1 GiB until phase 13
-#                              came, then 256 MiB; cut to keep the smoke
-#                              in its time)
+P11_IMAGE = 32 << 20          # 8 objects of 4 MiB (1 GiB until phase 13
+#                              came, then 256 and 64 MiB; cut to keep the
+#                              smoke in half its time)
 P11_SHRINK = P11_IMAGE - 12345
-P11_RANDOM_WRITES = 256       # 4 KiB each
-P11_MIRROR_IMAGE = 64 << 20  # 256 MiB and 16 big writes until phase 13
-P11_MIRROR_BIG, P11_MIRROR_SMALL = 4, 64
+P11_RANDOM_WRITES = 128       # 4 KiB each (256 until K1's redesign)
+P11_MIRROR_IMAGE = 32 << 20   # 256 MiB and 16 big writes until phase 13,
+#                              then 64 MiB, 4 big and 64 small writes
+P11_MIRROR_BIG, P11_MIRROR_SMALL = 2, 32
+P11_THRASH_OBJECTS = 16       # a pool (32 until K1's redesign)
 P11_NEO_OBJECTS = 64
 P11_CYCLES = 8
 P11_PROFILE = {"plugin": "jax", "k": str(K), "m": str(M),
@@ -2452,7 +2464,8 @@ def p11_thrash(device, card: str, seed: int, netsplit: bool) -> dict:
                                                  Thrasher, ThrashConfig)
     from ceph_tpu_torch.common import faults
     sim, mon = p11_stack(device)
-    cfg = ThrashConfig(seed=seed, objects=32, object_size=P11_OBJ,
+    cfg = ThrashConfig(seed=seed, objects=P11_THRASH_OBJECTS,
+                       object_size=P11_OBJ,
                        cycles=P11_CYCLES, max_down=2)
     if netsplit:                      # what `ceph thrash --netsplit` sets
         cfg.netsplit = True
@@ -2978,21 +2991,22 @@ def p12_nccl(device, card: str, gen) -> dict:
 # 3-replica pool of 2,048 PGs and an RS(8,3) bitsliced pool of 512 PGs
 # at Ceph's default 4 KiB stripe unit, on the HBM staging tier), then
 # S3Serve at its stock profile and the DR drill.
-P13_OBJECTS = 512             # phase 7's S3Serve size mix, zipf(1.3)
-#                              (1,024 until the tools' steps came; cut
-#                              to keep the smoke in its time)
+# The counts were cut (S3 objects 1,024, then 512; live puts 64, pairs
+# 64; small files 1,024, 4 MiB files 64, the big file 256 MiB) to keep
+# the smoke in half its time: every size, layout and shape stays.
+P13_OBJECTS = 128             # phase 7's S3Serve size mix, zipf(1.3)
 P13_SHARDS = 8                # S3Serve's ServeConfig.index_shards
 P13_RESHARD = 16
-P13_LIVE_PUTS = 64            # written while the bucket reshards
+P13_LIVE_PUTS = 32            # written while the bucket reshards
 P13_MP_BYTES = 64 << 20
 P13_MP_PART = 8 << 20         # the S3 CLI's default part size
-P13_PAIRS = 64                # PUT/GET pairs through each frontend
+P13_PAIRS = 16                # PUT/GET pairs through each frontend
 P13_KILLED = 3
 P13_FS_DIRS = 16
-P13_FS_SMALL = 1024           # small files, 1 B to 16 KiB
-P13_FS_MID = 64               # files of one 4 MiB object each
+P13_FS_SMALL = 256            # small files, 1 B to 16 KiB
+P13_FS_MID = 16               # files of one 4 MiB object each
 P13_FS_MID_BYTES = 4 << 20
-P13_FS_BIG = 256 << 20        # one file of 64 objects
+P13_FS_BIG = 64 << 20         # one file of 16 objects
 P13_HOT_READS = 48            # reads that make one subtree the hottest
 
 
@@ -4067,26 +4081,42 @@ def time_k2(shapes, card: str) -> dict:
     return out
 
 
+K1_TIMED = (("encode", 50), ("decode", 50), ("rebuild", 50),
+            ("liber8tion_w8_encode", 50), ("liberation_w7_encode", 50),
+            ("pc_put", 4), ("pc_durable_put", 20), ("pc_decode", 20),
+            ("p11_encode_128", 50), ("p11_encode_1", 50),
+            ("p11_decode_2", 50), ("p13_encode_3", 50),
+            ("p13_encode_32", 50), ("p13_decode_1_1", 50),
+            ("p13_decode_3_32", 50), ("p13_rebuild_7", 50))
+
+
 def time_k1(shapes, card: str) -> dict:
     """K1's device time at the encode, decode and rebuild shapes, at the
     liber8tion (w = 8) and liberation (w = 7) encodes, at the process
-    cluster's staged put, durable put and 2-erasure decode, and at phase
-    11's object put, small write and 2-erasure decode."""
+    cluster's staged put, durable put and 2-erasure decode, at phase
+    11's object put, small write and 2-erasure decode, and at phase 13's
+    most-launched 4 KiB shapes, beside its bound, its plain version, its
+    call time and its launch floor (an empty kernel at K1's grid and
+    shared memory, by graph replay like K1; None where the package has
+    no floor entry point)."""
     timings = {}
-    for name, iters in (("encode", 50), ("decode", 50), ("rebuild", 50),
-                        ("liber8tion_w8_encode", 50),
-                        ("liberation_w7_encode", 50), ("pc_put", 4),
-                        ("pc_durable_put", 20), ("pc_decode", 20),
-                        ("p11_encode_128", 50), ("p11_encode_1", 50),
-                        ("p11_decode_2", 50)):
+    floor = getattr(xor_kernel, "matmul_floor", None)
+    for name, iters in K1_TIMED:
         masks, words = shapes[name]
         B, C, W = words.shape
         R = masks.shape[-2]
         Bm = B if masks.dim() == 3 else 1
+        n0 = xor_kernel.launches
         ms = graph_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
                       iters=iters)
         call_ms = cuda_ms(lambda: xor_kernel.xor_matmul_w32(masks, words),
                           iters=iters)
+        if xor_kernel.launches - n0 != 2 + iters + 2 + iters:
+            fail("K1 timing: a wrapper call did not launch the kernel")
+        floor_ms = None if floor is None else \
+            graph_ms(lambda: floor(masks, words), iters=iters)
+        if xor_kernel.launches - n0 != 2 + iters + 2 + iters:
+            fail("K1 timing: the floor counted a K1 launch")
         m3 = masks if masks.dim() == 3 else masks[None]
         plain_ms = cuda_ms(lambda: xor_kernel._combine_torch(m3, words),
                            iters=3, warmup=1)
@@ -4095,7 +4125,8 @@ def time_k1(shapes, card: str) -> dict:
                          "bound_ms": bound_ms, "bound_by": bound_by}
         emit({"phase": "timing", "kernel": "xor_matmul_w32", "shape": name,
               "masks": list(masks.shape), "words": list(words.shape),
-              "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+              "ms": ms, "call_ms": call_ms, "floor_ms": floor_ms,
+              "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
               "bound_ms": bound_ms, "bound_by": bound_by,
               "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
               "hbm_share": nbytes / (ms * 1e-3) / HBM_BYTES_PER_S,

@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Time kernel K2 or K3 of one or more checkouts of the port on one card.
+"""Time kernel K1, K2 or K3 of one or more checkouts of the port on one card.
 
-    python3 kernel_timing.py --kernel k2|k3 [--tree DIR ...] [--out FILE]
+    python3 kernel_timing.py --kernel k1|k2|k3 [--tree DIR ...] [--out FILE]
 
 Each ``--tree`` (default: this checkout) is a root holding
 ``ceph_tpu_torch/``; each is timed in its own process, in the order
 given, so a change and its parent compare on one card within one call
 (give them as parent, change, change, parent).  Each process builds the
 kernel from its tree's ``csrc/`` and runs this checkout's
-``chip_smoke.time_k2`` or ``chip_smoke.time_k3`` against that tree's
+``chip_smoke.time_k1``, ``time_k2`` or ``time_k3`` against that tree's
 package:
 
+  * k1: K1 at ``chip_smoke.K1_TIMED``: the encode, decode and rebuild
+    at 128 KiB stripe units, the liber8tion and liberation encodes, the
+    process cluster's puts and decode at 1 MiB, and phases 11's and
+    13's most-launched shapes at 4 KiB stripe units, with its launch
+    floor (an empty kernel at K1's grid) and its call time, the floor
+    where the tree's package has its entry point;
   * k2: K2 at the batched encode [128, 8, 131072], the byte pool's put
     and 3-erasure decode [4, 8, 131072] and a ragged L = 131071, with
     its launch floor (an empty kernel at K2's grid) where the tree's
@@ -58,7 +64,16 @@ def _one(kernel: str, tree: str, out_path: str) -> None:
                 f.write(line + "\n")
     smoke.emit = emit
     device = torch.device("cuda")
-    if kernel == "k2":
+    if kernel == "k1":
+        from ceph_tpu_torch.ec import instance
+        codec = instance().factory(
+            "jax", {"k": str(smoke.K), "m": str(smoke.M),
+                    "technique": "reed_sol_van", "layout": "bitsliced"})
+        gen = torch.Generator(device=device).manual_seed(smoke.SEED)
+        shapes = smoke.k1_shapes(device, codec, gen)
+        shapes.update(smoke.plugin_k1_shapes(device, gen))
+        smoke.time_k1(shapes, smoke.gpu_line())
+    elif kernel == "k2":
         gen = torch.Generator(device=device).manual_seed(smoke.SEED)
         smoke.time_k2(smoke.k2_shapes(device, gen), smoke.gpu_line())
     else:
@@ -68,7 +83,7 @@ def _one(kernel: str, tree: str, out_path: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("k2", "k3"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), required=True)
     ap.add_argument("--tree", action="append",
                     help="checkout root to time (repeatable, in order)")
     ap.add_argument("--out", default="", help="also append the lines here")

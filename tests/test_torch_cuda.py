@@ -159,10 +159,137 @@ def test_wrong_inputs_raise(card):
         xor_kernel.xor_matmul_w32(
             masks, torch.zeros((2, 64, 16), dtype=torch.int32,
                                device=card)[:, :, ::2])
+    C = past_the_smem_limit(card)
     with pytest.raises(ValueError, match="shared memory"):
         xor_kernel.xor_matmul_w32(
-            torch.zeros((32, 400), dtype=torch.int32, device=card),
-            torch.zeros((1, 400, 8), dtype=torch.int32, device=card))
+            torch.zeros((32, C), dtype=torch.int32, device=card),
+            torch.zeros((1, C, 8), dtype=torch.int32, device=card))
+
+
+def largest_c(card, R=32, W=8):
+    """The largest C whose [R, C] shared masks K1 holds for words
+    [1, C, W] on this card (its plan's shared memory within the limit)."""
+    limit = xor_kernel._card(card.index or 0)[1]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    C = 384
+    while xor_kernel.plan(1, R, C + 1, W, False, True, sms).smem <= limit:
+        C += 1
+    return C
+
+
+def past_the_smem_limit(card):
+    return largest_c(card) + 1
+
+
+@pytest.mark.parametrize("C", [16, 48, 64, 88])
+@pytest.mark.parametrize("W", [1, 37, 43, 128, 512])
+def test_split_contraction_bit_identical(card, W, C):
+    """Narrow W: the warps split the C planes and fold their sums (W of 1,
+    37 and 43 on the scalar path; 128 and 512 on the 16-byte path), shared
+    and per-stripe masks."""
+    check(card, rand_masks((24, C), W + C), rand_words((3, C, W), W))
+    check(card, rand_masks((3, 24, C), W * C), rand_words((3, C, W), C))
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 65, 66, 67, 128, 171, 255, 256])
+def test_batches_at_4k_stripe_units(card, B):
+    """B from 1 to 256 at 4 KiB stripe units: row groups of 8 for a small
+    batch, a persistent grid of several items a block for a large one."""
+    masks = gf2.bitmatrix_masks(gf.gf8_bitmatrix(gf.vandermonde_parity(8, 3)))
+    check(card, masks, rand_words((B, 64, 128), B))
+    check(card, rebuild_masks(B, 8, 3, B), rand_words((B, 88, 128), B + 1))
+    check(card, decode_masks(8, 3, [1, 4, 9]), rand_words((B, 64, 128),
+                                                          B + 2))
+
+
+@pytest.mark.parametrize("R", [8, 24, 40, 72])
+def test_per_stripe_masks_every_path(card, R):
+    """Per-stripe masks: whole mask rows by the TMA unit (C % 4 == 0,
+    aligned), the scalar path's slices (C = 35, or masks off 16 bytes),
+    R past one register group."""
+    check(card, rand_masks((4, R, 64), R), rand_words((4, 64, 4096), R))
+    check(card, rand_masks((4, R, 35), R + 1), rand_words((4, 35, 300), R))
+    masks = torch.from_numpy(rand_masks((1 + 3 * R * 64,), R + 2)).to(card)
+    m = masks[1:].view(3, R, 64)
+    words = torch.from_numpy(rand_words((3, 64, 256), R + 3)).to(card)
+    assert m.data_ptr() % 16
+    got = xor_kernel.xor_matmul_w32(m, words)
+    assert torch.equal(got, xor_kernel._combine_torch(m, words))
+
+
+def test_masks_at_the_new_smem_limit(card):
+    """The largest shared mask matrix a block holds, and one plane more
+    refused before the launch."""
+    C = largest_c(card)
+    assert C > 384                  # the first port's limit at R = 32
+    check(card, rand_masks((32, C), 1), rand_words((2, C, 8), 2))
+    check(card, rand_masks((32, C), 3), rand_words((2, C, 4096), 4))
+    with pytest.raises(ValueError, match="shared memory"):
+        xor_kernel.xor_matmul_w32(
+            torch.zeros((32, C + 1), dtype=torch.int32, device=card),
+            torch.zeros((1, C + 1, 8), dtype=torch.int32, device=card))
+
+
+def test_k1_captured_in_a_cuda_graph_equals_eager(card):
+    """K1 calls captured into a CUDA graph (a 4 KiB encode, a per-stripe
+    rebuild at 128 KiB, a scalar-path call) replay to the eager outputs
+    and re-read their inputs on every replay."""
+    enc = torch.from_numpy(gf2.bitmatrix_masks(
+        gf.gf8_bitmatrix(gf.vandermonde_parity(8, 3)))).to(card)
+    reb = torch.from_numpy(rebuild_masks(16, 8, 3, 30)).to(card)
+    shapes = [(128, 64, 128), (16, 88, 4096), (4, 64, 4095)]
+    ins = [torch.from_numpy(rand_words(sh, 31 + i)).to(card)
+           for i, sh in enumerate(shapes)]
+
+    def call():
+        return (xor_kernel.xor_matmul_w32(enc, ins[0]),
+                xor_kernel.xor_matmul_w32(reb, ins[1]),
+                xor_kernel.xor_matmul_w32(enc, ins[2]))
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = call()
+    for seed in (None, 40):
+        if seed is not None:
+            for i, (t, sh) in enumerate(zip(ins, shapes)):
+                t.copy_(torch.from_numpy(rand_words(sh, seed + i)))
+        g.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        for c, e in zip(captured, eager):
+            assert torch.equal(c, e)
+    assert torch.equal(captured[1],
+                       xor_kernel._combine_torch(reb, ins[1]))
+
+
+@pytest.mark.parametrize("mshape,wshape", [
+    ((24, 64), (1, 64, 128)), ((24, 64), (256, 64, 128)),
+    ((7, 24, 88), (7, 88, 128)), ((24, 64), (512, 64, 4096)),
+    ((512, 24, 88), (512, 88, 4096)), ((16, 35), (6, 35, 37)),
+    ((24, 64), (16, 64, 4095)), ((72, 16), (2, 16, 999)),
+])
+def test_k1_floor_refuses_nothing_k1_accepts(card, mshape, wshape):
+    """The launch floor takes every shape K1 takes, launches, and counts
+    no K1 launch."""
+    masks = rand_masks(mshape, len(mshape))
+    words = rand_words(wshape, wshape[0])
+    check(card, masks, words)
+    m, w = torch.from_numpy(masks).to(card), torch.from_numpy(words).to(card)
+    launches = xor_kernel.launches
+    xor_kernel.matmul_floor(m, w)
+    torch.cuda.synchronize()
+    assert xor_kernel.launches == launches
+
+
+def test_plan_smem_is_the_kernels(card):
+    """The plan's shared memory is what the built kernel lays out."""
+    for (B, R, C, W, pb) in [(1, 24, 64, 128, False), (128, 24, 64, 128,
+                             False), (7, 24, 88, 128, True),
+                             (512, 24, 88, 4096, True),
+                             (16, 24, 64, 4095, False)]:
+        p = xor_kernel.plan(B, R, C, W, pb, True, 132)
+        assert xor_kernel.smem_bytes(p, R, C)[0] == p.smem
 
 
 def test_cuda_tensor_never_reaches_plain_version(card, monkeypatch):

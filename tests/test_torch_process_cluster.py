@@ -495,6 +495,37 @@ def test_vstart_cli_start_status_stop(tmp_path):
             raise AssertionError(f"daemon {pid} still running")
 
 
+def test_vstart_starts_the_osds_together(tmp_path):
+    """``Vstart.start(n, together=True)`` spawns every OSD before it waits
+    for any: all bind their sockets and the mon counts them all up."""
+    from ceph_tpu_torch.cluster.daemon import WireClient
+    from ceph_tpu_torch.common import auth as cx
+    from ceph_tpu_torch.tools import vstart
+    d = str(tmp_path / "c")
+    vstart.build_cluster_dir(d, n_osds=3, osds_per_host=1, fsync=False)
+    v = vstart.Vstart(d)
+    try:
+        v.start(3, hb_interval=0.5, together=True)
+        assert sorted(v.procs) == ["mon", "mon.0", "osd.0", "osd.1",
+                                   "osd.2"]
+        assert all(v.alive(n) for n in v.procs)
+        assert all(os.path.exists(os.path.join(d, f"osd.{i}.sock"))
+                   for i in range(3))
+        ring = cx.Keyring.load(os.path.join(d, "keyring.client"))
+        mon = WireClient(os.path.join(d, "mon.sock"), "client.admin",
+                         secret=ring.secret("client.admin"))
+        st = None
+        for _ in range(60):
+            st = mon.call({"cmd": "status"})
+            if st.get("n_up", st.get("num_up_osds")) == 3:
+                break
+            time.sleep(0.5)
+        assert st.get("n_up", st.get("num_up_osds")) == 3, st
+    finally:
+        v.stop()
+    assert not v.procs
+
+
 def test_same_scenario_on_a_reference_cluster(port_run, tmp_path):
     """The same scenario on a ceph_tpu vstart cluster: identical shard
     bytes on the daemons, victims, and deterministic recovery stats."""
