@@ -321,7 +321,9 @@ def distributed_encode_step(mesh: Mesh, bitmat, data: torch.Tensor
     (parity [B, m, L], total)."""
     from ..ops import gf_pallas
     bm = np.ascontiguousarray(
-        bitmat.cpu().numpy() if isinstance(bitmat, torch.Tensor)
+        # the K2 wrapper takes the bit-matrix as a host array
+        bitmat.cpu().numpy() if isinstance(bitmat,  # noqa: CTL101
+                                           torch.Tensor)
         else bitmat, dtype=np.uint8)
     return _step(mesh, gf_pallas.bitplane_matmul, bm, data)
 

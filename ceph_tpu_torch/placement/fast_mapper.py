@@ -330,7 +330,8 @@ class _FastChoose:
         spec = self.spec
         N = x.shape[0]
         groups = list(range(spec.numrep)) if self.per_rep else [0]
-        rvals = torch.arange(self.R, device=x.device).expand(N, self.R)
+        rvals = torch.arange(self.R, dtype=_I64,
+                             device=x.device).expand(N, self.R)
         row0 = torch.zeros((N, self.R), dtype=_I64, device=x.device)
         outs = [self._descend_grid(self.levels[g], spec.target_type, x,
                                    row0, rvals, self.has_leaf)
@@ -349,7 +350,7 @@ class _FastChoose:
         spec = self.spec
         N, G, R = p_leafrow.shape
         dev_ = x.device
-        rs = torch.arange(R, device=dev_)
+        rs = torch.arange(R, dtype=_I64, device=dev_)
         devs, sts = [], []
         for g in range(G):
             row0 = p_leafrow[:, g]                       # [N, R]
@@ -429,7 +430,7 @@ class _FastChoose:
         l_dev, l_st, l_is_out = leaf_pack
         N = l_dev.shape[0]
         dev_ = l_dev.device
-        slot_ids = torch.arange(out2.shape[1], device=dev_)
+        slot_ids = torch.arange(out2.shape[1], dtype=_I64, device=dev_)
         ldev = torch.full((N,), ITEM_NONE, dtype=_I64, device=dev_)
         lok = torch.zeros((N,), dtype=torch.bool, device=dev_)
         ldone = torch.zeros((N,), dtype=torch.bool, device=dev_)
@@ -460,7 +461,7 @@ class _FastChoose:
         out2 = out.clone()
         outpos = torch.zeros((N,), dtype=_I64, device=dev_)
         incomplete = torch.zeros((N,), dtype=torch.bool, device=dev_)
-        slot_ids = torch.arange(R_out, device=dev_)
+        slot_ids = torch.arange(R_out, dtype=_I64, device=dev_)
         for rep in range(spec.numrep):
             g = rep if self.per_rep else 0
             placed = torch.zeros((N,), dtype=torch.bool, device=dev_)
@@ -517,7 +518,8 @@ class _FastChoose:
         R_out = spec.numrep
         limit = min(spec.numrep, count_limit)
         NONE = torch.full((N,), ITEM_NONE, dtype=_I64, device=dev_)
-        active = (torch.arange(R_out, device=dev_) < limit).expand(N, R_out)
+        active = (torch.arange(R_out, dtype=_I64, device=dev_)
+                  < limit).expand(N, R_out)
         out = torch.full((N, R_out), ITEM_NONE, dtype=_I64, device=dev_)
         out[:, :limit] = ITEM_UNDEF
         out2 = out.clone()
@@ -697,7 +699,7 @@ class FastMapper:
                             device=dev_)
         rpos = torch.zeros((N,), dtype=_I64, device=dev_)
         incomplete = torch.zeros((N,), dtype=torch.bool, device=dev_)
-        res_ids = torch.arange(result_max, device=dev_)
+        res_ids = torch.arange(result_max, dtype=_I64, device=dev_)
         pend_out = None            # (vals [N, n], count [N]) awaiting emit
         for entry in plan:
             kind = entry[0]
@@ -820,5 +822,7 @@ class FastMapper:
         out_d, inc_d = out_d[:n], inc_d[:n]
         if not readback:
             return out_d, inc_d
-        return (out_d.cpu().numpy().astype(np.int32),
-                inc_d.cpu().numpy())
+        # the one readback of the sweep: results and the incomplete
+        # lanes the caller hands to the native mapper
+        return (out_d.cpu().numpy().astype(np.int32),  # noqa: CTL101
+                inc_d.cpu().numpy())  # noqa: CTL101

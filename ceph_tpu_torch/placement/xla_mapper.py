@@ -258,7 +258,7 @@ def _straw2_select(dt: DeviceTables, u, w, sizes) -> torch.Tensor:
     tie-break."""
     Sl = u.shape[1]
     valid = (w > 0) & \
-        (torch.arange(Sl, device=u.device) < sizes[:, None])
+        (torch.arange(Sl, dtype=_I64, device=u.device) < sizes[:, None])
     a = dt.ln_numer(u)
     wf = w.to(torch.float64)
     q = torch.floor(a / wf.clamp(min=1.0))
@@ -311,8 +311,8 @@ def _uniform_choose(dt: DeviceTables, c, x, r, pos):
     n = dt.sizes[c]                     # never 0: _descend skips empties
     bid = dt.bucket_ids[c]
     pr = r % n
-    perm = torch.arange(S, device=c.device).repeat(L, 1)
-    act = torch.arange(L, device=c.device)
+    perm = torch.arange(S, dtype=_I64, device=c.device).repeat(L, 1)
+    act = torch.arange(L, dtype=_I64, device=c.device)
     p = 0
     while act.numel():
         na = n[act]
@@ -338,7 +338,7 @@ def _list_choose(dt: DeviceTables, c, x, r, pos):
     h = hashing.jx_hash4(x[:, None], items, r[:, None],
                          dt.bucket_ids[c][:, None]) & 0xFFFF
     draw = (h * dt.sum_weights[c]) >> 16
-    ar = torch.arange(S, device=c.device)
+    ar = torch.arange(S, dtype=_I64, device=c.device)
     ok = (draw < dt.weight_sets[c, 0]) & (ar < dt.sizes[c][:, None])
     idx = torch.where(ok, ar, torch.full_like(ar, -1)).amax(dim=1)
     return _pick(items, idx.clamp(min=0))
@@ -358,7 +358,7 @@ def _tree_choose(dt: DeviceTables, c, x, r, pos):
     NW = nw.shape[1]
     n = dt.num_nodes[c] >> 1
     bid = dt.bucket_ids[c]
-    act = torch.arange(c.shape[0], device=c.device)
+    act = torch.arange(c.shape[0], dtype=_I64, device=c.device)
     for _ in range(NW.bit_length() + 1):
         act = act[(n[act] & 1) == 0]
         if not act.numel():
@@ -383,7 +383,7 @@ def _straw_choose(dt: DeviceTables, c, x, r, pos):
     items = dt.items[c]
     h = hashing.jx_hash3(x[:, None], items, r[:, None]) & 0xFFFF
     draw = h * dt.straws[c]                       # below 2^48, exact
-    ar = torch.arange(dt.S, device=c.device)
+    ar = torch.arange(dt.S, dtype=_I64, device=c.device)
     draw = torch.where(ar < dt.sizes[c][:, None], draw,
                        torch.full_like(draw, -1))
     return _pick(items, torch.argmax(draw, dim=1))
@@ -436,7 +436,7 @@ def _descend(dt: DeviceTables, bidx, target_type: int, x, r, pos,
     status = torch.full((L,), _REJECT, dtype=_I64, device=dev)
     # the reference's gathers clamp an index past the table
     cur = bidx.clamp(0, cm.n_buckets - 1)
-    act = torch.arange(L, device=dev)
+    act = torch.arange(L, dtype=_I64, device=dev)
     bump_uniform = bump is not None and bump[1] > 0 and \
         BUCKET_UNIFORM in dt.alg_list
     r_at = r.clone() if bump_uniform else r
@@ -490,11 +490,11 @@ def _leaf_firstn(dt, bidx, weights, x, sub_r, recurse_tries: int,
     L = bidx.shape[0]
     dev_ = bidx.device
     R = out2.shape[1]
-    slots = torch.arange(R, device=dev_)
+    slots = torch.arange(R, dtype=_I64, device=dev_)
     rep_base = torch.zeros_like(outpos) if stable else outpos
     out_dev = torch.full((L,), ITEM_NONE, dtype=_I64, device=dev_)
     ok = torch.zeros((L,), dtype=torch.bool, device=dev_)
-    act = torch.arange(L, device=dev_)
+    act = torch.arange(L, dtype=_I64, device=dev_)
     for ftotal in range(recurse_tries):
         if not act.numel():
             break
@@ -520,7 +520,7 @@ def _choose_firstn(dt, bidx, target_type: int, numrep: int,
     L = bidx.shape[0]
     dev_ = bidx.device
     R = numrep
-    slots = torch.arange(R, device=dev_)
+    slots = torch.arange(R, dtype=_I64, device=dev_)
     # one spare column takes the writes of lanes that place nothing
     out = torch.full((L, R + 1), ITEM_NONE, dtype=_I64, device=dev_)
     out2 = out.clone()
@@ -530,7 +530,7 @@ def _choose_firstn(dt, bidx, target_type: int, numrep: int,
         placed = torch.zeros((L,), dtype=torch.bool, device=dev_)
         item_sel = torch.full((L,), ITEM_NONE, dtype=_I64, device=dev_)
         leaf_sel = item_sel.clone()
-        act = torch.arange(L, device=dev_)
+        act = torch.arange(L, dtype=_I64, device=dev_)
         while act.numel():
             r = rep + ftotal[act]
             pos = outpos[act]
@@ -585,7 +585,7 @@ def _leaf_indep(dt, bidx, weights, x, parent_r, rep: int, numrep: int,
     L = bidx.shape[0]
     dev_ = bidx.device
     out_dev = torch.full((L,), ITEM_NONE, dtype=_I64, device=dev_)
-    act = torch.arange(L, device=dev_)
+    act = torch.arange(L, dtype=_I64, device=dev_)
     for ftotal in range(recurse_tries):
         if not act.numel():
             break
@@ -607,7 +607,8 @@ def _choose_indep(dt, bidx, target_type: int, numrep: int,
     L = bidx.shape[0]
     dev_ = bidx.device
     R = numrep
-    active = torch.arange(R, device=dev_)[None, :] < out_size_limit[:, None]
+    active = torch.arange(R, dtype=_I64, device=dev_)[None, :] \
+        < out_size_limit[:, None]
     out = torch.where(active, ITEM_UNDEF, ITEM_NONE).to(_I64)
     out2 = out.clone()
     lanes = _nz((out == ITEM_UNDEF).any(dim=1))
@@ -701,10 +702,11 @@ class XlaMapper:
             """dst[l, at[l] + i] = vals[l, i] for i < count[l]; the other
             writes land in dst's spare last column (the reference's
             mode="drop")."""
-            i = torch.arange(vals.shape[1], device=dev_)[None, :]
+            i = torch.arange(vals.shape[1], dtype=_I64, device=dev_)[None, :]
             col = torch.where(i < count[:, None], at[:, None] + i,
                               result_max)
-            dst[torch.arange(dst.shape[0], device=dev_)[:, None], col] = vals
+            dst[torch.arange(dst.shape[0], dtype=_I64,
+                             device=dev_)[:, None], col] = vals
 
         choose_tries = t.choose_total_tries + 1
         choose_leaf_tries = 0
@@ -916,7 +918,9 @@ class XlaMapper:
                 with pc.time("fast_map_s"):
                     out, inc = self._fast.map_batch(
                         ruleno, xs, result_max, weights, mesh=mesh)
-                if inc.any():
+                # inc is fast_mapper's host readback (numpy), not a
+                # tensor: no sync here
+                if inc.any():  # noqa: CTL102
                     rows = np.flatnonzero(inc)
                     pc.inc("fallback_lanes", len(rows))
                     xs_np = np.asarray(xs, dtype=np.int64)[rows]
@@ -957,4 +961,6 @@ class XlaMapper:
             parts = [trace(x_dev[i:i + cap])
                      for i in range(0, len(xs_np), cap)]
             out_d = parts[0] if len(parts) == 1 else torch.cat(parts)
-            return out_d[:n].cpu().numpy().astype(np.int32)
+            # the one readback of the general sweep
+            return out_d[:n].cpu().numpy().astype(  # noqa: CTL101
+                np.int32)

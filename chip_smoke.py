@@ -131,7 +131,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      full 4 KiB block; (10b) before the daemons stop, a 4+2 pool made
      with the mon's ``pool_create`` request and the ``"default"``
      profile, ``rados put`` of a 4 MiB object, ``get`` (every byte
-     equal), ``ls``, ``rm`` and ``rados bench 5``;
+     equal), ``ls``, ``rm`` and ``rados bench 5``; (10c) the ``ceph`` CLI
+     on those daemons with its client on the card (``status``,
+     ``health``, ``osd tree``, ``df``, ``osd df``, ``pg dump``, ``osd pool
+     create|ls|rm``, ``osd set|unset noout``, ``daemon osd.N perf dump``
+     on the lowest OSD left alive, each a counted step), then ``ceph lint --check`` and the static
+     smoke (``tools/check_static``) on the checkout, each timed, with the
+     lint's finding, baselined and noqa counts;
  11. the failure pipeline and the block tier on the cluster step's map
      (32 hosts x 4 OSDs) with a 3-replica pool (pg_num 2,048) and an
      RS(8,3) bitsliced pool (pg_num 512), about 100 PG replicas an OSD,
@@ -2254,6 +2260,8 @@ def process_cluster(device, card: str) -> dict:
         crcutil.note_scan = note_scan
         wire._frame_parts = frame_parts
         tools = tools_rados(device, card, PC_DIR)
+        ceph = tools_ceph(device, card, PC_DIR,
+                          min(set(range(PC_OSDS)) - set(victims)))
     finally:
         undo.close()
         crcutil.note_scan = note_scan
@@ -2287,7 +2295,7 @@ def process_cluster(device, card: str) -> dict:
             "k3_launches_in_checks": launched["k3"] - total["k3"],
             "device_crc_bytes": total["device_crc_bytes"],
             "readback_bytes": total["readback_bytes"], **times,
-            "_tools": tools, "gpu": card}
+            "_tools": tools, "_ceph": ceph, "gpu": card}
 
 
 def pc_csum_timing(device, card: str) -> dict:
@@ -3750,6 +3758,94 @@ def tools_rados(device, card: str, cluster_dir: str) -> dict:
             "launch_shapes": shapes_of(steps), "gpu": card}
 
 
+def tools_ceph(device, card: str, cluster_dir: str, live_osd: int) -> dict:
+    """10c: the ``ceph`` CLI on phase 10's daemons with its client on the
+    card: ``status``, ``health``, ``osd tree``, ``df``, ``osd df``, ``pg
+    dump 1``, ``osd pool create|ls|rm``, ``osd set|unset noout`` and
+    ``daemon osd.N perf dump`` (``live_osd``: the lowest OSD phase 10 did
+    not kill), each a counted step (its wall time printed)."""
+    from ceph_tpu_torch.tools import ceph_cli
+    steps = {}
+
+    def ceph(label, *words, ok=(0,)):
+        res = counted_step(device, 10, f"tools_ceph_{label}",
+                           lambda: tool_run(ceph_cli.main, [
+                               "--device", str(device), "--dir",
+                               cluster_dir, *words], out=True),
+                           steps, card)
+        if res[0] not in ok or not res[1]:
+            fail(f"10c ceph {' '.join(words)}: {res}")
+        return res[1]
+
+    status = ceph("status", "status")
+    # phase 10 killed two OSDs: health may warn, never fail to answer
+    health = ceph("health", "health", ok=(0, 1))
+    tree = ceph("osd_tree", "osd", "tree")
+    df = ceph("df", "df")
+    osd_df = ceph("osd_df", "osd", "df")
+    pgs = ceph("pg_dump", "pg", "dump", "1")
+    created = ceph("pool_create", "osd", "pool", "create", "ceph10c", "8")
+    listed = ceph("pool_ls", "osd", "pool", "ls")
+    noout = ceph("osd_set", "osd", "set", "noout")
+    unset = ceph("osd_unset", "osd", "unset", "noout")
+    removed = ceph("pool_rm", "osd", "pool", "rm", "ceph10c")
+    after = ceph("pool_ls_after", "osd", "pool", "ls")
+    perf_dump = json.loads(ceph("daemon_perf_dump", "daemon",
+                                f"osd.{live_osd}", "perf", "dump"))
+    if "health:" not in status or not health.startswith("HEALTH_"):
+        fail(f"10c ceph status/health: {status!r} {health!r}")
+    if sum(line.endswith(("  up", "  down"))
+           for line in tree.splitlines()) != PC_OSDS:
+        fail(f"10c ceph osd tree: {tree!r}")
+    if "ec" not in df or "NAME" not in osd_df:
+        fail(f"10c ceph df: {df!r} {osd_df!r}")
+    if len(pgs.splitlines()) != PC_PG_NUM + 1:
+        fail(f"10c ceph pg dump: {len(pgs.splitlines())} lines")
+    if "created" not in created or "ceph10c" not in listed.split() or \
+            "ceph10c" in after.split() or "removed" not in removed:
+        fail(f"10c ceph pool create/ls/rm: {created!r} {listed!r} "
+             f"{removed!r} {after!r}")
+    if noout != "noout is set (flags: noout)\n" or \
+            unset != "noout is unset (flags: -)\n":
+        fail(f"10c ceph osd set/unset: {noout!r} {unset!r}")
+    if not perf_dump:
+        fail(f"10c ceph daemon osd.{live_osd} perf dump: empty")
+    return {"steps": steps, "daemon": f"osd.{live_osd}",
+            "perf_groups": len(perf_dump),
+            "k1_launches": sum(s["k1"] for s in steps.values()),
+            "k3_launches": sum(s["k3"] for s in steps.values()),
+            "launch_shapes": shapes_of(steps), "gpu": card}
+
+
+def tools_lint(card: str) -> dict:
+    """10c: ``ceph lint --check`` and the static smoke (its seeded tier
+    and its real tier) on the checkout, each timed; the lint's finding,
+    baselined and noqa counts."""
+    from ceph_tpu_torch.tools import ceph_cli, check_static
+    t0 = time.perf_counter()
+    rc, out, _err = tool_run(ceph_cli.main, ["lint", "--check", "--json"],
+                             out=True)
+    lint_s = time.perf_counter() - t0
+    rep = json.loads(out)
+    if rc != 0 or rep["count"] or rep["stale_baseline"]:
+        fail(f"10c ceph lint --check: rc {rc}, {rep['count']} findings, "
+             f"{rep['findings'][:5]}, stale {rep['stale_baseline']}")
+    t0 = time.perf_counter()
+    rc2, out2, err2 = tool_run(check_static.main, [])
+    static_s = time.perf_counter() - t0
+    if rc2 != 0:
+        fail(f"10c check_static: {out2} {err2}")
+    res = {"lint_s": lint_s, "findings": rep["count"],
+           "baselined": rep["baselined"], "noqa": rep["noqa"],
+           "rules": len(rep["rules"]), "check_static_s": static_s,
+           "check_static": out2.strip().splitlines(), "gpu": card}
+    emit({"phase": "p10_step", "step": "tools_lint", "s": lint_s,
+          "gpu": card})
+    emit({"phase": "p10_step", "step": "tools_check_static",
+          "s": static_s, "gpu": card})
+    return res
+
+
 def tools_rbd(device, card: str, io_a) -> dict:
     """11d: ``rbd`` on phase 11's RS(8,3) pool: create a 16 MiB image,
     write it whole, snapshot, overwrite its first object, list and roll
@@ -4283,6 +4379,11 @@ def main() -> int:
     emit({"phase": "tools_rados",
           "s": sum(st["s"] for st in t10["steps"].values()), **t10})
     check_held("10b rados", t10["launch_shapes"], held)
+    t10c = pc.pop("_ceph")
+    emit({"phase": "tools_ceph",
+          "s": sum(st["s"] for st in t10c["steps"].values()), **t10c})
+    check_held("10c ceph", t10c["launch_shapes"], held)
+    emit({"phase": "tools_lint", **tools_lint(card)})
     emit({"phase": "pc_csum_timing", **pc_csum_timing(device, card)})
     torch.cuda.empty_cache()
 
@@ -4372,7 +4473,8 @@ def main() -> int:
          "launches": k1_slice + steps["bitsliced"]["k1_launches"] +
          plugin_k1 + pc["k1_launches"] + p11_k1 +
          sum(c["k1_launches"] for c in p12c.values()) + p12s["k1_launches"] +
-         p13_k1 + t8["k1_launches"] + t10["k1_launches"],
+         p13_k1 + t8["k1_launches"] + t10["k1_launches"] +
+         t10c["k1_launches"],
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -4390,7 +4492,8 @@ def main() -> int:
          "source": "ceph_tpu_torch/csrc/ragged_fused.cu",
          "replaces": "ceph_tpu/ops/gf_pallas.py:83",
          "launches": zw["k3_launches"] + pc["k3_launches"] +
-         p12r["launches"] + p13_k3 + t10["k3_launches"],
+         p12r["launches"] + p13_k3 + t10["k3_launches"] +
+         t10c["k3_launches"],
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],

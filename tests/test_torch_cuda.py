@@ -1240,3 +1240,32 @@ def test_bench_sweep_on_the_card_launches_per_dispatch(card):
 
     assert rows(got[1]) == rows(want[1])
     assert skipped(got[2]) == skipped(want[2])
+
+
+def test_graph_replay_skips_host_counter(card):
+    """What CTL1002 flags, shown on the card: a host counter bumped in
+    code a CUDA graph captures counts the capture, never the replays —
+    three replays, one increment — while the captured device work runs
+    on every replay."""
+    counts = {"calls": 0}
+    x = torch.zeros(4, device=card)
+
+    def step():
+        counts["calls"] += 1
+        x.add_(1)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()                                   # warm up off-graph
+    torch.cuda.current_stream().wait_stream(side)
+    counts["calls"] = 0
+    x.zero_()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step()
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    assert counts["calls"] == 1
+    assert x.tolist() == [3.0] * 4

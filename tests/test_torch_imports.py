@@ -117,8 +117,33 @@ def test_port_files_exist():
                  "ceph_tpu_torch/cluster/dr_drill.py",
                  "ceph_tpu_torch/fs/mdsmap.py",
                  "ceph_tpu_torch/fs/mds.py",
-                 "ceph_tpu_torch/fs/multimds.py"):
+                 "ceph_tpu_torch/fs/multimds.py",
+                 "ceph_tpu_torch/analysis/__init__.py",
+                 "ceph_tpu_torch/analysis/core.py",
+                 "ceph_tpu_torch/analysis/registry.py",
+                 "ceph_tpu_torch/analysis/baseline.py",
+                 "ceph_tpu_torch/analysis/astutil.py",
+                 "ceph_tpu_torch/analysis/runner.py",
+                 "ceph_tpu_torch/analysis/shardspec.py",
+                 "ceph_tpu_torch/analysis/rules_jax.py",
+                 "ceph_tpu_torch/analysis/rules_dtype.py",
+                 "ceph_tpu_torch/analysis/rules_shard.py",
+                 "ceph_tpu_torch/analysis/rules_faults.py",
+                 "ceph_tpu_torch/tools/ceph_cli.py",
+                 "ceph_tpu_torch/tools/lint.py",
+                 "ceph_tpu_torch/tools/check_static.py"):
         assert want in names
+
+
+def test_every_reference_file_has_its_twin():
+    """The port mirrors the reference's layout: every ``ceph_tpu/X/y.py``
+    has its ``ceph_tpu_torch/X/y.py``."""
+    ref = sorted(p.relative_to(REPO / "ceph_tpu").as_posix()
+                 for p in (REPO / "ceph_tpu").rglob("*.py"))
+    missing = [r for r in ref if not (REPO / "ceph_tpu_torch" / r).exists()]
+    assert not missing, f"{len(missing)} of {len(ref)} files have no " \
+        f"twin: {missing}"
+    assert len(ref) >= 156
 
 
 @pytest.mark.parametrize(
