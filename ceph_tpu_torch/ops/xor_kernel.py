@@ -30,6 +30,7 @@ at K1's grid and shared memory (its launch floor) and counts nothing.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -347,10 +348,35 @@ def _masks_device(key: bytes, R: int, C: int, device: str) -> torch.Tensor:
     return torch.as_tensor(gf2.bitmatrix_masks(bm), device=device)
 
 
+# mask operands already uploaded, keyed like the lru above (same
+# capacity and per-access recency, so eviction tracks it); locked, as
+# OSD dispatcher threads upload concurrently (ops/gf_jax.py's pattern)
+_seen_masks: collections.OrderedDict = collections.OrderedDict()
+_seen_lock = threading.Lock()
+
+
 def masks_to_device(bitmat: np.ndarray, device=None) -> torch.Tensor:
     """Host GF(2) bit-matrix [R, C] 0/1 -> cached device mask operand
     [R, C] int32 (0 / -1), keyed by content and device (the ISA-L
-    table-cache role, src/erasure-code/isa/ErasureCodeIsaTableCache.h:35)."""
+    table-cache role, src/erasure-code/isa/ErasureCodeIsaTableCache.h:35).
+
+    The first upload of an operand is the port's counterpart of the
+    reference's first compile of the masked-XOR executable for a new
+    shape: a ``jit.compile`` child span of the op that caused it, with
+    the reference's component ``ec.xor_kernel``.  It is a span only: the
+    ``jit`` perf group keeps the reference's XLA compiles, which the
+    port has none of."""
     bm = np.ascontiguousarray(bitmat, dtype=np.uint8)
-    return _masks_device(bm.tobytes(), *bm.shape,
-                         str(resolve_device(device)))
+    key = (bm.tobytes(), bm.shape, str(resolve_device(device)))
+    with _seen_lock:
+        first = key not in _seen_masks
+        _seen_masks[key] = True
+        _seen_masks.move_to_end(key)
+        while len(_seen_masks) > _masks_device.cache_info().maxsize:
+            _seen_masks.popitem(last=False)
+    if not first:
+        return _masks_device(key[0], *bm.shape, key[2])
+    from ..common.tracer import child_span
+    with child_span("jit.compile", component="ec.xor_kernel",
+                    signature=f"{bm.shape[0]}x{bm.shape[1]}"):
+        return _masks_device(key[0], *bm.shape, key[2])

@@ -35,6 +35,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      put of a 4 MiB object and of a 1 MiB bench write (step 10b); and K1
      and K2 at every shape step 8b launches, their operands taken from
      each cell of 8b's grid run once through ``bench_sweep.bench_cell``);
+     and K1 at phase 14's shapes (``P14_K1``: RS(4,2) at W = 2, 128 and
+     512 words a plane, encodes, decodes and per-stripe rebuilds, and
+     RS(2,1) encodes at W = 128; each with one mask table and with a
+     table a batch row, at a batch above the twins' largest);
   3. the EC data path through ECBackend: an RS(8,3) layout=bitsliced pool,
      1 MiB stripes, 128 objects of 4 MiB put in one ingest batch onto 16
      OSD device caches, 3 OSDs killed, every object read back (degraded
@@ -200,11 +204,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      ``MgrModuleHost`` over (a)'s sim and mon with the five modules: a
      Prometheus render (every perf group a family) and one scrape over
      HTTP, the dashboard's API, the autoscaler's recommendations,
-     telemetry's report and devicehealth's samples.  Then the whole
-     smoke's wall time.
+     telemetry's report and devicehealth's samples;
+ 14. the twins of the reference's check smokes
+     (``ceph_tpu_torch/tools/check_<name>.py``) through their ``main``
+     with ``--device cuda``, each a counted step: ``check_multichip``
+     (the sharded cluster step on 8 cells of the card held to the
+     unsharded one, ``dispatched_mesh``, the ``cluster_sharded``
+     section), ``check_wire`` (two OSD daemons: one crc pass per byte,
+     the shm lane, the socket fallback), ``check_recovery`` (RS(4,2) at a
+     16 KiB stripe unit on a sim, then three daemons and
+     ``recover_pool``), ``check_async`` (three daemons: completions,
+     ordering, stream pools), ``check_robustness`` (the CrashDev smoke,
+     a seeded thrash twice, a netsplit soak), ``check_observability``
+     (the op trail, scrapes, traces, history, a cold operand's
+     ``jit.compile`` span, the balancer advisor), and the cheap legs of
+     ``check_serving`` (bucket-index sharding on an RS(2,1) sim) and
+     ``check_dr`` (the seed-2 drill digest): each must return 0, and
+     each that reaches a kernel must launch it.  Then the whole smoke's
+     wall time.
 
 Around each path of phases 3, 6, 7, each pool of phase 8, each step of
-phases 10, 11 and 13 and each run of phase 12 the kernels' launch counts are
+phases 10, 11, 13 and 14 and each run of phase 12 the kernels' launch counts are
 set to 0 just before and read just after: K1's must equal the bitsliced
 paths' dispatches (phase 11: the ec.jax dispatches plus the rebuild
 dispatches; phase 12: those of the plane-off run, and the cells times
@@ -215,12 +235,14 @@ one a cell of each distributed step), K3's the ZeroWire path's encode
 launches plus its device crc dispatches (phase 10: the device crc
 dispatches alone; phase 12: one a cell; phase 13: its device crc
 dispatches, while phase 13's K1 launches equal its ec.jax plus rebuild
-dispatches); the host pools launch nothing,
+dispatches; phase 14 as phase 13, but that a dispatch made while the
+sharded data plane is on launches K1 once on each of its cells); the host
+pools launch nothing,
 and no plain version may run; the steps of the tools read their counts
 the same way (8b: K1 equal to each cell's bitsliced ``ec.jax`` and
 bitmatrix dispatches, K2 to its byte-layout ones).  After phases 8, 10,
-11 and 13 the smoke fails if a step launched a kernel at a shape phase 2
-did not hold.  The placement phases 4 and 5 (4b and 5b too) and phase
+11, 13 and 14 the smoke fails if a step launched a kernel at a shape
+phase 2 did not hold.  The placement phases 4 and 5 (4b and 5b too) and phase
 12's sweep run no kernel; phase 5 and phase 12's sweep fail if a count
 moves.  Earlier lines print
 the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
@@ -2434,18 +2456,23 @@ def check_counts(where: str, d: dict) -> None:
 
 
 def counted_step(device, phase: int, label: str, fn, steps: dict,
-                 card: str):
-    """One step of phase 11 or 13: the kernels' counts set to 0 just
-    before it and read just after (launches by kernel and shape), its
-    wall time printed, the counts checked (``check_counts``); returns
-    ``fn()``'s result."""
+                 card: str, check=None):
+    """One step of phase 11, 13 or 14: the kernels' counts set to 0 just
+    before it and read just after (launches by kernel and shape, and K1's
+    launches while the sharded data plane is on, ``k1_plane_on``), its
+    wall time printed, the counts checked (``check``, ``check_counts``
+    when None); returns ``fn()``'s result."""
+    from ceph_tpu_torch.parallel import data_plane
     shapes = {}
+    plane_on = [0]
     lock = threading.Lock()
 
     def seen(kernel, key):
         with lock:
             h = shapes.setdefault(kernel, {})
             h[key] = h.get(key, 0) + 1
+            if kernel == "k1" and data_plane.enabled():
+                plane_on[0] += 1
 
     sync(device)
     with launch_shapes(seen):
@@ -2455,13 +2482,15 @@ def counted_step(device, phase: int, label: str, fn, steps: dict,
         sync(device)
         wall = time.perf_counter() - t0
     d = {k: v - c0[k] for k, v in step_counts().items()}
+    d["k1_plane_on"] = plane_on[0]
     steps[label] = {"s": wall, **d, "launch_shapes": shapes}
     emit({"phase": f"p{phase}_step", "step": label, "s": wall,
-          "k1": d["k1"], "k3": d["k3"], "ec_dispatches": d["ec_dispatches"],
+          "k1": d["k1"], "k1_plane_on": d["k1_plane_on"], "k3": d["k3"],
+          "ec_dispatches": d["ec_dispatches"],
           "rebuild_dispatches": d["rebuild_dispatches"],
           "device_crc_dispatches": d["device_crc_dispatches"],
           "gpu": card})
-    check_counts(f"phase {phase} {label}", d)
+    (check or check_counts)(f"phase {phase} {label}", d)
     return out
 
 
@@ -3408,6 +3437,65 @@ def p13_drill(device, card: str) -> dict:
             "lose_bilog_failures": red["failures"], "steps": steps}
 
 
+# ------------------------------------------------------------ phase 14 --
+#
+# The twins of the reference's check smokes (ceph_tpu_torch/tools/
+# check_<name>.py) through their entry points with ``--device cuda``, in
+# the order of the port's queue: the ones that reach a kernel first.
+# check_serving and check_dr run their cheap legs (``--quick``), as the
+# reference's own tests do; their live legs run at full size in phases
+# 13c and 13d.  (name, arguments, kernels the twin must launch)
+P14_TWINS = (("multichip", [], ("k1",)), ("wire", [], ("k3",)),
+             ("recovery", [], ("k1",)), ("async", [], ()),
+             ("robustness", [], ("k1",)), ("observability", [], ("k1",)),
+             ("serving", ["--quick"], ("k1",)), ("dr", ["--quick"], ()))
+
+
+def check_plane_counts(where: str, d: dict, cells: int) -> None:
+    """``check_counts`` for a step that runs with the sharded data plane
+    on for a while: a plane dispatch is one ec.jax or rebuild dispatch
+    that launches K1 once on each of the plane's ``cells``."""
+    on = d["k1_plane_on"]
+    if on == 0 or on % cells:
+        fail(f"{where}: {on} K1 launches with the plane on, not a "
+             f"positive multiple of its {cells} cells")
+    check_counts(where, dict(d, k1=d["k1"] - on + on // cells))
+
+
+def p14_twins(device, card: str) -> dict:
+    """14: every twin's ``main`` on the card, each a counted step (K1 =
+    ec.jax + rebuild dispatches, a plane dispatch once a cell; K3 = device
+    crc dispatches; K2 none; no plain version); each must return 0 and
+    launch the kernels ``P14_TWINS`` names."""
+    import importlib
+    steps, lines = {}, {}
+    for name, argv, kernels in P14_TWINS:
+        mod = importlib.import_module(f"ceph_tpu_torch.tools.check_{name}")
+        check = None
+        if name == "multichip":
+            def check(where, d, cells=mod.N_CELLS):
+                check_plane_counts(where, d, cells)
+        rc, out, err = counted_step(
+            device, 14, name,
+            lambda: tool_run(mod.main, ["--device", device.type, *argv]),
+            steps, card, check=check)
+        if rc != 0:
+            fail(f"phase 14 check_{name}: rc {rc}\n{out}\n{err}")
+        for kernel in kernels:
+            if not steps[name][kernel]:
+                fail(f"phase 14 check_{name}: {kernel.upper()} never "
+                     f"launched")
+        lines[name] = out.strip().splitlines()
+        emit({"phase": "p14_twin", "twin": f"check_{name}", "argv": argv,
+              "s": steps[name]["s"], "k1": steps[name]["k1"],
+              "k3": steps[name]["k3"], "out": lines[name],
+              "launch_shapes": steps[name]["launch_shapes"], "gpu": card})
+        torch.cuda.empty_cache()
+    return {"steps": steps, "out": lines,
+            "k1_launches": sum(st["k1"] for st in steps.values()),
+            "k3_launches": sum(st["k3"] for st in steps.values())}
+
+
 # ---------------------------------------------------- the operator's tools --
 #
 # The tools run through their entry points (``main(argv)`` with
@@ -4082,6 +4170,39 @@ def rados_k1_shapes(device, gen) -> dict:
             for W in (T10_OBJ // 4 // 32, (1 << 20) // 4 // 32)}
 
 
+# K1's shapes in phase 14, as the twins launch them, (B, C, W, R): C input
+# rows (8 planes a data chunk, 8k, or 8(k + m) for a per-stripe rebuild),
+# W words a plane (the stripe unit / 32), R output rows (8 an output
+# chunk).  Each is held at a batch above the largest the twins launch,
+# once with one mask table for the batch and once with a table a batch
+# row: check_multichip's RS(4,2) sims (make_sim's 4 KiB stripe unit,
+# W = 128, and entry.build_sim's 64 B, W = 2, on each of 8 cells),
+# check_recovery's RS(4,2) at 16 KiB (W = 512), check_robustness's thrash
+# stack (RS(4,2), W = 128), and check_observability's and check_serving's
+# RS(2,1) pools (W = 128).
+P14_K1 = ((64, 32, 2, 16), (64, 32, 2, 8), (64, 48, 2, 16),
+          (32, 32, 128, 16), (32, 32, 128, 8), (32, 48, 128, 16),
+          (32, 32, 512, 16), (32, 48, 512, 16), (64, 16, 128, 8))
+
+
+def twin_k1_shapes(device, gen) -> dict:
+    """K1 at phase 14's shapes (``P14_K1``), each with a shared mask table
+    and with one a batch row, the tables random bit-matrices."""
+    rng = np.random.default_rng(SEED + 14)
+    out = {}
+    for B, C, W, R in P14_K1:
+        words = random_words((B, C, W), gen, device)
+        shared = gf2.bitmatrix_masks(rng.integers(0, 2, (R, C),
+                                                  dtype=np.uint8))
+        rows = np.stack([gf2.bitmatrix_masks(
+            rng.integers(0, 2, (R, C), dtype=np.uint8)) for _ in range(B)])
+        out[f"p14_{B}x{C}x{W}_{R}"] = (torch.as_tensor(shared,
+                                                       device=device), words)
+        out[f"p14_{B}x{C}x{W}_{R}_per_row"] = (
+            torch.as_tensor(rows, device=device), words)
+    return out
+
+
 def bench_sweep_operands(device):
     """K1's and K2's operands at 8b's shapes: every cell of 8b's grid run
     once through ``bench_sweep.bench_cell`` at its batch on the card, the
@@ -4250,6 +4371,7 @@ def main() -> int:
     shapes = k1_shapes(device, codec, gen)
     shapes.update(plugin_k1_shapes(device, gen))
     shapes.update(rados_k1_shapes(device, gen))
+    shapes.update(twin_k1_shapes(device, gen))
     shapes2 = k2_shapes(device, gen)
     shapes2.update(plugin_k2_shapes(device, gen))
     sweep_k1, sweep_k2 = bench_sweep_operands(device)
@@ -4466,6 +4588,15 @@ def main() -> int:
         if loose:
             fail(f"phase 13 launched {kernel.upper()} at shapes phase 2 "
                  f"did not hold against its plain version: {loose}")
+    # 14. the twins of the reference's check smokes (each twin's counts
+    # are read around it inside)
+    t14 = time.perf_counter()
+    p14 = p14_twins(device, card)
+    check_held("phase 14", shapes_of(p14["steps"]), held)
+    emit({"phase": "p14_total", "s": time.perf_counter() - t14,
+          "k1_launches": p14["k1_launches"],
+          "k3_launches": p14["k3_launches"],
+          "launch_shapes": shapes_of(p14["steps"]), "gpu": card})
     emit({"kernels": [
         {"name": "xor_matmul_w32", "route": "cuda",
          "source": "ceph_tpu_torch/csrc/xor_matmul.cu",
@@ -4474,7 +4605,7 @@ def main() -> int:
          plugin_k1 + pc["k1_launches"] + p11_k1 +
          sum(c["k1_launches"] for c in p12c.values()) + p12s["k1_launches"] +
          p13_k1 + t8["k1_launches"] + t10["k1_launches"] +
-         t10c["k1_launches"],
+         t10c["k1_launches"] + p14["k1_launches"],
          "max_abs_err": max(errs.values()),
          "ms": enc1["ms"], "plain_ms": enc1["plain_ms"],
          "bound_ms": enc1["bound_ms"], "bound_by": enc1["bound_by"],
@@ -4493,7 +4624,7 @@ def main() -> int:
          "replaces": "ceph_tpu/ops/gf_pallas.py:83",
          "launches": zw["k3_launches"] + pc["k3_launches"] +
          p12r["launches"] + p13_k3 + t10["k3_launches"] +
-         t10c["k3_launches"],
+         t10c["k3_launches"] + p14["k3_launches"],
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],

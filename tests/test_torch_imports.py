@@ -131,7 +131,15 @@ def test_port_files_exist():
                  "ceph_tpu_torch/analysis/rules_faults.py",
                  "ceph_tpu_torch/tools/ceph_cli.py",
                  "ceph_tpu_torch/tools/lint.py",
-                 "ceph_tpu_torch/tools/check_static.py"):
+                 "ceph_tpu_torch/tools/check_static.py",
+                 "ceph_tpu_torch/tools/check_multichip.py",
+                 "ceph_tpu_torch/tools/check_wire.py",
+                 "ceph_tpu_torch/tools/check_recovery.py",
+                 "ceph_tpu_torch/tools/check_async.py",
+                 "ceph_tpu_torch/tools/check_robustness.py",
+                 "ceph_tpu_torch/tools/check_observability.py",
+                 "ceph_tpu_torch/tools/check_serving.py",
+                 "ceph_tpu_torch/tools/check_dr.py"):
         assert want in names
 
 
@@ -144,6 +152,39 @@ def test_every_reference_file_has_its_twin():
     assert not missing, f"{len(missing)} of {len(ref)} files have no " \
         f"twin: {missing}"
     assert len(ref) >= 156
+
+
+def reference_smokes():
+    return sorted(p.stem for p in (REPO / "scripts").glob("check_*.py"))
+
+
+def test_every_reference_smoke_has_its_twin():
+    """Every check smoke of the reference (``scripts/check_<name>.py``)
+    has its ``ceph_tpu_torch/tools/check_<name>.py``."""
+    smokes = reference_smokes()
+    missing = [s for s in smokes
+               if not (REPO / "ceph_tpu_torch" / "tools" / f"{s}.py").exists()]
+    assert not missing, f"{len(missing)} of {len(smokes)} smokes have no " \
+        f"twin: {missing}"
+    assert len(smokes) >= 10
+
+
+@pytest.mark.parametrize("name", [s[len("check_"):]
+                                  for s in reference_smokes()
+                                  if s not in ("check_multihost",
+                                               "check_static")])
+def test_every_smoke_twin_needs_a_card_unless_the_cpu_is_asked_for(name):
+    """A twin's ``--device`` defaults to the card: without one it raises
+    before it builds a sim or starts a daemon, and never drops to the
+    CPU on its own (``check_multihost`` and ``check_static`` run on the
+    CPU by design)."""
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    mod = importlib.import_module(f"ceph_tpu_torch.tools.check_{name}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    assert ceph_tpu_torch.default_device() == "cuda"
 
 
 @pytest.mark.parametrize(

@@ -164,6 +164,26 @@ def test_masks_to_device_caches_by_content():
     assert np.array_equal(np.asarray(xk_ref.masks_to_device(B)), a.numpy())
 
 
+def test_first_upload_of_a_mask_operand_is_a_compile_span():
+    """The first upload of an operand to a device (the counterpart of the
+    reference's first compile for a new shape) is one ``jit.compile``
+    child span of the op, component ``ec.xor_kernel``; a cached operand
+    makes none, and the ``jit`` perf group is not written."""
+    from ceph_tpu_torch.common.perf_counters import perf
+    from ceph_tpu_torch.common.tracer import tracer
+    B = np.random.default_rng(7).integers(0, 2, (24, 40), dtype=np.uint8)
+    jit0 = perf("jit").dump()
+    tracer().reset()
+    with tracer().start_span("op"):
+        xor_kernel.masks_to_device(B)
+        xor_kernel.masks_to_device(B.copy())
+    spans = [s for s in tracer().dump_traces()["spans"]
+             if s["name"] == "jit.compile"]
+    assert [(s["tags"]["component"], s["tags"]["signature"])
+            for s in spans] == [("ec.xor_kernel", "24x40")]
+    assert perf("jit").dump() == jit0
+
+
 def test_cpu_tensor_runs_plain_version_and_no_launch():
     B = parity_bitmatrix("reed_sol_van", 8, 3)
     words = torch.zeros((2, 64, 16), dtype=torch.int32)
