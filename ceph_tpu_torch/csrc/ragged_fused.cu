@@ -67,6 +67,9 @@
 // synchronizes; the occupancy, SM count and shared-memory limit are asked
 // once, so a call captured into a CUDA graph queries nothing.  The return
 // value is cudaGetLastError() after the launches (0 = launched).
+// ceph_ragged_fused_floor launches an empty kernel with K3's grid, block
+// and shared memory for the same shape: the launch floor K3's time is
+// measured against.
 
 #include <climits>
 #include <cstdint>
@@ -348,6 +351,12 @@ ragged_fused_kernel(const uint32_t* __restrict__ ptab,     // [G][k][32]
     }
 }
 
+// The launch floor: K3's grid, block and shared memory, no work.
+__global__ void __launch_bounds__(kThreads) ragged_fused_floor_kernel() {}
+
+// the largest shared-memory size the floor kernel was opted in to so far
+int floor_allowed = 48 * 1024;
+
 int smem_bytes(int G, int k, int rows, long long T) {
     const int nrows = k + rows;
     return kAlign +
@@ -363,9 +372,11 @@ int cached_smem_limit() {
     return limit;
 }
 
+// one pass of K3 (or, with floor, the empty kernel at the same grid)
 template <int G, bool VEC>
-cudaError_t launch_pass(const uint32_t* ptab, const uint32_t* crc_tab,
-                        const uint32_t* warp_op, const uint8_t* pool,
+cudaError_t launch_pass(bool floor, const uint32_t* ptab,
+                        const uint32_t* crc_tab, const uint32_t* warp_op,
+                        const uint8_t* pool,
                         uint8_t* parity, long long* dcrc, long long* pcrc,
                         long long NG, int k, int m, int row0, int rows,
                         long long T, uint32_t crc0, int do_dcrc,
@@ -396,21 +407,34 @@ cudaError_t launch_pass(const uint32_t* ptab, const uint32_t* crc_tab,
     long long grid = sms * cached_per_sm;
     if (grid > NG) grid = NG;
     if (grid > INT_MAX) grid = INT_MAX;
-    kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-        ptab, crc_tab, warp_op, pool, parity, dcrc, pcrc, NG, k, m, row0,
-        rows, T, crc0, do_dcrc);
+    if (floor) {
+        if (smem > floor_allowed) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                ragged_fused_floor_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (e != cudaSuccess) return e;
+            floor_allowed = smem;
+        }
+        ragged_fused_floor_kernel<<<static_cast<unsigned>(grid), kThreads,
+                                    smem, stream>>>();
+    } else {
+        kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+            ptab, crc_tab, warp_op, pool, parity, dcrc, pcrc, NG, k, m, row0,
+            rows, T, crc0, do_dcrc);
+    }
     return cudaGetLastError();
 }
 
 template <bool VEC>
-cudaError_t launch(int G, const uint32_t* ptab, const uint32_t* crc_tab,
-                   const uint32_t* warp_op, const uint8_t* pool,
+cudaError_t launch(int G, bool floor, const uint32_t* ptab,
+                   const uint32_t* crc_tab, const uint32_t* warp_op,
+                   const uint8_t* pool,
                    uint8_t* parity, long long* dcrc, long long* pcrc,
                    long long NG, int k, int m, int row0, int rows, long long T,
                    uint32_t crc0, int do_dcrc, cudaStream_t s) {
-#define K3_PASS(GG)                                                          \
-    launch_pass<GG, VEC>(ptab, crc_tab, warp_op, pool, parity, dcrc, pcrc,  \
-                         NG, k, m, row0, rows, T, crc0, do_dcrc, s)
+#define K3_PASS(GG)                                                        \
+    launch_pass<GG, VEC>(floor, ptab, crc_tab, warp_op, pool, parity, dcrc, \
+                         pcrc, NG, k, m, row0, rows, T, crc0, do_dcrc, s)
     switch (G) {
         case 0: return K3_PASS(0);
         case 1: return K3_PASS(1);
@@ -419,6 +443,54 @@ cudaError_t launch(int G, const uint32_t* ptab, const uint32_t* crc_tab,
         default: return K3_PASS(4);
     }
 #undef K3_PASS
+}
+
+// K3's passes (or, with floor, the empty kernel at the same launches)
+int run(bool floor, const void* ptab, const void* crc_tab,
+        const void* warp_op, const void* pool, void* parity, void* dcrc,
+        void* pcrc, long long NG, int k, int m, long long T,
+        unsigned int crc0, void* stream) {
+    if (NG <= 0 || k <= 0 || m < 0 || T <= 0) return cudaErrorInvalidValue;
+    if (!floor &&
+        (crc_tab == nullptr || warp_op == nullptr || pool == nullptr ||
+         dcrc == nullptr ||
+         (m > 0 && (ptab == nullptr || parity == nullptr || pcrc == nullptr))))
+        return cudaErrorInvalidValue;
+    const int groups = (m + 3) / 4;
+    const bool vec = (T % 16 == 0) &&
+                     (floor || (aligned16(pool) &&
+                                (m == 0 || aligned16(parity))));
+    const uint32_t* t = static_cast<const uint32_t*>(ptab);
+    const uint32_t* ct = static_cast<const uint32_t*>(crc_tab);
+    const uint32_t* wo = static_cast<const uint32_t*>(warp_op);
+    const uint8_t* d = static_cast<const uint8_t*>(pool);
+    uint8_t* o = static_cast<uint8_t*>(parity);
+    long long* dc = static_cast<long long*>(dcrc);
+    long long* pc = static_cast<long long*>(pcrc);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int limit = cached_smem_limit();
+    int g0 = 0;
+    do {
+        int G = groups - g0 < 4 ? groups - g0 : 4;
+        int rows = m - 4 * g0 < 4 * G ? m - 4 * g0 : 4 * G;
+        while (G > 1 && smem_bytes(G, k, rows, T) > limit) {
+            --G;
+            rows = 4 * G;
+        }
+        if (smem_bytes(G, k, rows, T) > limit) return cudaErrorInvalidValue;
+        const uint32_t* tp =
+            G && !floor ? t + static_cast<long long>(g0) * k * kNibWords
+                        : nullptr;
+        const int do_dcrc = g0 == 0;
+        const cudaError_t e =
+            vec ? launch<true>(G, floor, tp, ct, wo, d, o, dc, pc, NG, k, m,
+                               4 * g0, rows, T, crc0, do_dcrc, s)
+                : launch<false>(G, floor, tp, ct, wo, d, o, dc, pc, NG, k, m,
+                                4 * g0, rows, T, crc0, do_dcrc, s);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        g0 += G;
+    } while (g0 < groups);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -444,43 +516,16 @@ int ceph_ragged_fused(const void* ptab, const void* crc_tab,
                       const void* warp_op, const void* pool, void* parity,
                       void* dcrc, void* pcrc, long long NG, int k, int m,
                       long long T, unsigned int crc0, void* stream) {
-    if (NG <= 0 || k <= 0 || m < 0 || T <= 0 || crc_tab == nullptr ||
-        warp_op == nullptr || pool == nullptr || dcrc == nullptr ||
-        (m > 0 && (ptab == nullptr || parity == nullptr || pcrc == nullptr)))
-        return cudaErrorInvalidValue;
-    const int groups = (m + 3) / 4;
-    const bool vec = (T % 16 == 0) && aligned16(pool) &&
-                     (m == 0 || aligned16(parity));
-    const uint32_t* t = static_cast<const uint32_t*>(ptab);
-    const uint32_t* ct = static_cast<const uint32_t*>(crc_tab);
-    const uint32_t* wo = static_cast<const uint32_t*>(warp_op);
-    const uint8_t* d = static_cast<const uint8_t*>(pool);
-    uint8_t* o = static_cast<uint8_t*>(parity);
-    long long* dc = static_cast<long long*>(dcrc);
-    long long* pc = static_cast<long long*>(pcrc);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int limit = cached_smem_limit();
-    int g0 = 0;
-    do {
-        int G = groups - g0 < 4 ? groups - g0 : 4;
-        int rows = m - 4 * g0 < 4 * G ? m - 4 * g0 : 4 * G;
-        while (G > 1 && smem_bytes(G, k, rows, T) > limit) {
-            --G;
-            rows = 4 * G;
-        }
-        if (smem_bytes(G, k, rows, T) > limit) return cudaErrorInvalidValue;
-        const uint32_t* tp = G ? t + static_cast<long long>(g0) * k * kNibWords
-                               : nullptr;
-        const int do_dcrc = g0 == 0;
-        const cudaError_t e =
-            vec ? launch<true>(G, tp, ct, wo, d, o, dc, pc, NG, k, m, 4 * g0,
-                               rows, T, crc0, do_dcrc, s)
-                : launch<false>(G, tp, ct, wo, d, o, dc, pc, NG, k, m, 4 * g0,
-                                rows, T, crc0, do_dcrc, s);
-        if (e != cudaSuccess) return static_cast<int>(e);
-        g0 += G;
-    } while (g0 < groups);
-    return static_cast<int>(cudaGetLastError());
+    return run(false, ptab, crc_tab, warp_op, pool, parity, dcrc, pcrc, NG,
+               k, m, T, crc0, stream);
+}
+
+// The empty kernel launched as ceph_ragged_fused would launch K3 for a pool
+// [NG, k, T] and m parity rows (pool and parity assumed 16-byte aligned).
+int ceph_ragged_fused_floor(long long NG, int k, int m, long long T,
+                            void* stream) {
+    return run(true, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, NG, k, m, T, 0, stream);
 }
 
 }  // extern "C"

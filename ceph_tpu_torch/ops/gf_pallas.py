@@ -34,8 +34,9 @@ Dispatch is by the tensor's device and nothing else:
     tables by nibble too; its crc walks each row 16 bytes per thread,
     and the host builds the GF(2) operators that carry each thread's
     and each warp's partial crc to the end of the row (``crc_tables``,
-    ``warp_operators``).  ``bitplane_floor`` launches an empty kernel
-    with K2's grid, the launch floor K2's time is measured against.  A
+    ``warp_operators``).  ``bitplane_floor`` and ``ragged_fused_floor``
+    launch an empty kernel with K2's or K3's grid and shared memory, the
+    launch floor the kernel's time is measured against.  A
     refused launch raises; there is no fallback.
   * CPU tensor: the plain versions, ``gf_jax.bitplane_matmul`` (K2) and
     ``ragged_fused.fused_block_math`` (K3), which the tests hold
@@ -341,6 +342,10 @@ def _fused_lib() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_uint, ctypes.c_void_p]
     lib.ceph_ragged_fused.restype = ctypes.c_int
+    lib.ceph_ragged_fused_floor.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_void_p]
+    lib.ceph_ragged_fused_floor.restype = ctypes.c_int
     lib.ceph_ragged_fused_smem_bytes.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
     lib.ceph_ragged_fused_smem_bytes.restype = ctypes.c_int
@@ -409,6 +414,21 @@ def _launch_fused(bm: np.ndarray, pool: torch.Tensor):
     with _count_lock:
         fused_launches += 1
     return parity, dcrc, pcrc
+
+
+def ragged_fused_floor(m: int, pool: torch.Tensor) -> None:
+    """The launch floor of K3 for ``pool`` [G, k, T] on the card and m
+    parity rows: an empty kernel launched with K3's grid, block and
+    shared memory.  Not K3: it computes nothing and counts no launch."""
+    if pool.device.type != "cuda":
+        raise ValueError(f"K3's floor runs on the card, not {pool.device}")
+    G, k, T = pool.shape
+    with torch.cuda.device(pool.device):
+        rc = _fused_lib().ceph_ragged_fused_floor(
+            G, k, m, T, torch.cuda.current_stream(pool.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 floor launch failed: cudaError {rc} "
+                           f"(pool {tuple(pool.shape)}, m {m})")
 
 
 def fused_ragged_matmul(bitmat, pool: torch.Tensor):

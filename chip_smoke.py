@@ -111,10 +111,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   9. time each kernel beside its bound and its plain version: device time
      from launches captured in one CUDA graph and replayed between CUDA
      events, and the wrapper's call time from back-to-back calls between
-     CUDA events (host work included); K1 and K2 also beside their
-     launch floors, an empty kernel at the kernel's grid and shared
+     CUDA events (host work included); each kernel also beside its
+     launch floor, an empty kernel at the kernel's grid and shared
      memory replayed the same way (K1 also at phase 13's most-launched
-     4 KiB shapes);
+     4 KiB shapes; K3 at its pool and its three crc-leg frames);
  10. the process cluster (bench.py's ``bench_process_cluster``):
      ``tools/vstart`` starts one mon, then 12 OSD daemon processes
      together (``start(..., together=True)``), each
@@ -1597,9 +1597,12 @@ def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
             card: str) -> dict:
     """K3's device time at the full ZeroWire pool and its crc leg at a
     2 MiB frame (512 blocks), at the ZeroWire path's mean verified frame
-    and at the process cluster's flush batch, beside their bounds and
-    plain versions."""
+    and at the process cluster's flush batch, beside their bounds, plain
+    versions and launch floors (an empty kernel at K3's grid and shared
+    memory, 50 launches by graph replay; None where the package has no
+    floor entry point)."""
     out = {}
+    floor = getattr(gf_pallas, "ragged_fused_floor", None)
     rs42 = gf.gf8_bitmatrix(gf.isa_rs_parity(ZW_K, ZW_M))
     none = np.zeros((0, 8), dtype=np.uint8)
     pool = torch.from_numpy(main_pool).to(device)
@@ -1626,6 +1629,10 @@ def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
                           iters=iters)
         if gf_pallas.fused_launches - n0 != 2 + iters + 2 + iters:
             fail("K3 timing: a wrapper call did not launch the kernel")
+        floor_ms = None if floor is None else \
+            graph_ms(lambda: floor(m, data), iters=50)
+        if gf_pallas.fused_launches - n0 != 2 + iters + 2 + iters:
+            fail("K3 timing: the floor counted a K3 launch")
         plain_ms = cuda_ms(lambda: k3_plain(bitmat, data, chunk=1024),
                            iters=1, warmup=1)
         bound_ms, bound_by, nbytes, ops = k3_bound(G, k, m, T)
@@ -1633,7 +1640,8 @@ def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
                      "bound_by": bound_by}
         emit({"phase": "timing", "kernel": "ragged_fused", "shape": name,
               "pool": [G, k, T], "m": m, "ms": ms, "call_ms": call_ms,
-              "plain_ms": plain_ms, "bytes": nbytes, "lookups": ops,
+              "floor_ms": floor_ms, "plain_ms": plain_ms, "bytes": nbytes,
+              "lookups": ops,
               "bound_ms": bound_ms, "bound_by": bound_by,
               "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
               "lookups_ms": ops / SMEM_LOOKUPS_PER_S * 1e3,

@@ -23,7 +23,10 @@ package:
     package has the floor entry point;
   * k3: K3 at the ZeroWire path's whole pool (1,024 S3Serve-profile
     objects, RS(4,2), 41,670 staged 4 KiB blocks) and its crc leg at a
-    2 MiB frame and at the path's mean verified frame (70 blocks).
+    2 MiB frame, at the path's mean verified frame (70 blocks) and at the
+    process cluster's flush batch, with its launch floor (an empty kernel
+    at K3's grid and shared memory) where the tree's package has the
+    floor entry point.
 
 Device time by CUDA-graph replay and call time between CUDA events,
 beside the bound and the plain version.  One JSON line per tree and

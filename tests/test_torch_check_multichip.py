@@ -10,6 +10,12 @@ by tests/test_torch_data_plane.py
 cells of the CPU, the reference's on the suite's 8 forced host devices,
 and their deterministic facts must be equal: the recovery stats of every
 sim and the per-cell put stripes of the sharded step.
+
+Both runs count into their package's ``perf("dataplane")``, which an
+earlier test file in the same process may have filled (a 2 x 4 plane
+leaves its ``r<i>c<j>.*`` keys at 0 after ``reset()``): each package's
+group is emptied for the comparison (``torch_check.fresh_perf_group``),
+and a test here leaves that state first and compares all the same.
 """
 import sys
 
@@ -20,7 +26,7 @@ from ceph_tpu.common.perf_counters import perf as ref_perf
 from ceph_tpu_torch.cluster.simulator import ClusterSim as PortClusterSim
 from ceph_tpu_torch.common.perf_counters import perf as port_perf
 from ceph_tpu_torch.tools import check_multichip
-from torch_check import reference_smoke
+from torch_check import fresh_perf_group, reference_smoke
 
 # One intra-op thread per test process: the suite runs under several
 # xdist workers, and a full torch pool in each oversubscribes the
@@ -54,6 +60,8 @@ def put_stripes(dump):
 def test_check_multichip_smoke(monkeypatch, capsys):
     """::test_check_multichip_smoke, with --quick, and its facts held to
     the reference's"""
+    for perf in (port_perf, ref_perf):
+        fresh_perf_group(monkeypatch, perf, "dataplane")
     port = observed(monkeypatch, PortClusterSim, port_perf)
     assert check_multichip.main(["--device", "cpu", "--quick"]) == 0
     assert capsys.readouterr().out.startswith(
@@ -68,7 +76,38 @@ def test_check_multichip_smoke(monkeypatch, capsys):
     assert len(port["dataplane"]) == len(ref["dataplane"]) == 3
     sharded = put_stripes(port["dataplane"][1])
     assert sorted(sharded) == [f"shard{i}.put_stripes" for i in range(8)]
+    assert all(sharded.values())
     assert sharded == put_stripes(ref["dataplane"][1])
+
+
+def leave_2d_plane_keys(perf):
+    """What a 2 x 4 plane run leaves in a package's ``dataplane`` group
+    after ``reset()`` (tests/test_torch_data_plane.py runs one in each
+    package): its per-cell keys, at 0."""
+    group = perf("dataplane")
+    for r in range(2):
+        for c in range(4):
+            group.inc(f"r{r}c{c}.put_stripes")
+            group.inc(f"r{r}c{c}.put_bytes")
+    group.reset()
+
+
+def test_check_multichip_smoke_after_a_2d_plane_run(monkeypatch, capsys):
+    """The comparison holds in a process whose ``dataplane`` groups an
+    earlier 2 x 4 plane run filled, as ``--dist loadfile`` gives it when
+    tests/test_torch_data_plane.py ran earlier in the same worker; the
+    earlier run's keys come back afterwards."""
+    saved = {}
+    for name, perf in (("port", port_perf), ("ref", ref_perf)):
+        group = perf("dataplane")
+        monkeypatch.setattr(group, "_types", dict(group._types))
+        monkeypatch.setattr(group, "_vals", dict(group._vals))
+        leave_2d_plane_keys(perf)
+        saved[name] = group.dump()
+    with monkeypatch.context() as m:
+        test_check_multichip_smoke(m, capsys)
+    assert port_perf("dataplane").dump() == saved["port"]
+    assert ref_perf("dataplane").dump() == saved["ref"]
 
 
 def test_check_multichip_fails_when_the_plane_diverges(monkeypatch, capsys):

@@ -681,6 +681,28 @@ def test_k3_object_edges_on_card_equal_cpu(card):
                 (w.block, w.subs, w.length, w.combined)
 
 
+@pytest.mark.parametrize("shape,m", [
+    ((41670, 4, 4096), 2), ((512, 1, 4096), 0), ((70, 1, 4096), 0),
+    ((22528, 1, 4096), 0), ((9, 4, 4096), 16), ((7, 4, 4095), 2),
+    ((3, 1, 1 << 20), 0),
+])
+def test_k3_floor_refuses_nothing_k3_accepts(card, shape, m):
+    """The launch floor takes every shape K3 takes (the four of K3's
+    timed shapes, several passes, a ragged T, a row of many chunks),
+    launches, and counts no K3 launch."""
+    bm = gf.gf8_bitmatrix(gf.isa_rs_parity(shape[1], m)) if m else \
+        np.zeros((0, 8 * shape[1]), dtype=np.uint8)
+    pool = torch.randint(0, 256, shape, dtype=torch.uint8, device=card,
+                         generator=torch.Generator(device=card)
+                         .manual_seed(m))
+    launches = gf_pallas.fused_launches
+    gf_pallas.fused_ragged_matmul(bm, pool)
+    assert gf_pallas.fused_launches == launches + 1
+    gf_pallas.ragged_fused_floor(m, pool)
+    torch.cuda.synchronize()
+    assert gf_pallas.fused_launches == launches + 1
+
+
 def test_k3_wrong_inputs_raise(card):
     bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(4, 2))
     with pytest.raises(TypeError):

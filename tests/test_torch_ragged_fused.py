@@ -219,6 +219,19 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     assert dcrc.dtype == torch.int64
 
 
+def test_k3_floor_refuses_a_cpu_pool(monkeypatch):
+    """K3's launch floor runs on the card only: a CPU pool raises before
+    the kernel library is built, and no launch or plain run is counted."""
+    def refuse():
+        raise AssertionError("K3's library was built for a CPU pool")
+    monkeypatch.setattr(gf_pallas, "_fused_lib", refuse)
+    n0, p0 = gf_pallas.fused_launches, gf_pallas.plain_runs
+    with pytest.raises(ValueError, match="on the card"):
+        gf_pallas.ragged_fused_floor(M, torch.zeros((70, K, 4096),
+                                                    dtype=torch.uint8))
+    assert gf_pallas.fused_launches == n0 and gf_pallas.plain_runs == p0
+
+
 def test_wrapper_rejects_bad_inputs():
     bitmat = gf.gf8_bitmatrix(gf.isa_rs_parity(K, M))
     with pytest.raises(TypeError):

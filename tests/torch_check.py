@@ -1,6 +1,7 @@
 """Shared by the tests of the port's check-smoke twins
 (``tests/test_torch_check_*.py``): a twin run in a child process on the
-CPU, with a wall-clock bound.
+CPU, with a wall-clock bound, and a perf group emptied for a twin run in
+the test's own process.
 
 A twin that starts OSD daemons runs in its own process with a timeout:
 no pytest timeout plugin is installed, so a hang (ROADMAP section C's
@@ -36,3 +37,20 @@ def reference_smoke(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def fresh_perf_group(monkeypatch, perf, name):
+    """Empties ``perf(name)`` in place until the test ends, then gives it
+    back its keys and counts.
+
+    A group keeps every key it ever counted: ``reset()`` sets each to 0
+    and keeps it.  Under ``--dist loadfile`` a worker runs whole files one
+    after another in one process, so a twin run in the test's process
+    finds the keys of every earlier file's run in the same group (a 2 x 4
+    plane's ``r0c0.*`` ... ``r1c3.*`` beside the 1-D ``shard<i>.*``).
+    The group object stays the same one, since a live data plane holds
+    it."""
+    group = perf(name)
+    monkeypatch.setattr(group, "_types", {})
+    monkeypatch.setattr(group, "_vals", {})
+    return group
