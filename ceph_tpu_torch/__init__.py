@@ -7,11 +7,13 @@ it in ``csrc/`` (K1 ``xor_matmul.cu``, K2 ``gf_bitplane.cu``, K3
 ``ragged_fused.cu``).  The package imports ``torch`` and NumPy, never
 JAX and nothing of ``ceph_tpu``: the NumPy-only modules it needs are
 kept here as copies (``common/{options,perf_counters,faults,lockdep,
-tracer,op_tracker,jit_profile,crcutil,auth,compressor}.py``,
+op_tracker,jit_profile,crcutil,auth,compressor}.py``,
 ``ops/{gf,gf2}.py``, ``ec/{interface,base,table_cache,
 matrix_codec}.py``, ``placement/{crush_map,lntable,builder,
 scalar_mapper}.py``, ``msg/{encoding,queue,scheduler,dispatcher,
 shm_ring}.py``, ``msg/wire.py`` but for its receive verify,
+``common/tracer.py`` but for its bridge to ``torch.profiler`` and the
+device time of a span,
 ``cluster/{pg_heat,objectstore,pglog,ec_rmw,osd_service,blockdev,kv,
 wal_kv,bluestore,filestore,crashdev,daemon_pglog,class_handler,monitor,
 mon_quorum,objecter,async_objecter}.py``, ``mgr/{module_host,

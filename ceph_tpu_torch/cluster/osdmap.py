@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..common import tracer as _tracing
 from ..ops import hashing
 from ..placement.crush_map import ITEM_NONE, CrushMap
 from ..placement import scalar_mapper
@@ -216,6 +217,10 @@ class OSDMap:
     def apply_incremental(self, inc: Incremental) -> None:
         """Consume a map delta (OSDMap::apply_incremental): must be the
         next epoch in sequence."""
+        with _tracing.start_span("osdmap.apply_incremental"):
+            self._apply_incremental(inc)
+
+    def _apply_incremental(self, inc: Incremental) -> None:
         if inc.epoch != self.epoch + 1:
             raise ValueError(
                 f"incremental epoch {inc.epoch} != {self.epoch} + 1")
@@ -443,14 +448,24 @@ class OSDMap:
         up_primary [N] int32).  pg_temp/primary_temp are control-plane
         overlays applied by callers that need acting sets (they are sparse
         dicts; see pg_to_up_acting_osds).
+
+        Traced as the span ``osdmap.map_pgs_batch`` with the stages
+        ``osdmap.pps`` and ``osdmap.post_crush`` beneath it, beside the
+        mapper's own.
         """
+        with _tracing.start_span("osdmap.map_pgs_batch"):
+            return self._map_pgs_batch(pool_id, pss)
+
+    def _map_pgs_batch(self, pool_id: int, pss: Optional[np.ndarray]
+                       ) -> Tuple[np.ndarray, np.ndarray]:
         pool = self.pools.get(pool_id)
         if pool is None:
             raise KeyError(f"no pool {pool_id}")
         if pss is None:
             pss = np.arange(pool.pg_num, dtype=np.int64)
         pss = np.asarray(pss, dtype=np.int64)
-        pps = pool.raw_pg_to_pps_batch(pss)
+        with _tracing.child_span("osdmap.pps"):
+            pps = pool.raw_pg_to_pps_batch(pss)
         mapper = self._batched_mapper()
         # sharded data plane: the PG lane axis splits across the mesh
         # (the multi-device ParallelPGMapper, src/osd/OSDMapMapping.h:18);
@@ -463,7 +478,8 @@ class OSDMap:
             mesh=dp.mesh if dp is not None else None).astype(np.int64)
         if dp is not None:
             dp.account("map", len(pss), 4 * pool.size)
-        return self._post_crush_batch(pool, pss, pps, raw)
+        with _tracing.child_span("osdmap.post_crush"):
+            return self._post_crush_batch(pool, pss, pps, raw)
 
     def _post_crush_batch(self, pool: PGPool, pss, pps, raw
                           ) -> Tuple[np.ndarray, np.ndarray]:

@@ -34,6 +34,15 @@ sit on put/get hot paths, so DISARMED tracing is a single dict
 membership test — no config resolve, no lock, no allocation.  Span
 ids are drawn from a per-process RNG (not a counter) so ids never
 collide across the processes one trace spans.
+
+The profiler's clock and the card's: while a ``torch.profiler`` is
+active, every context-managed span also opens a ``record_function``
+range of its name, so it stands in the profiler's own timeline (and
+names the card's idle gaps there); with no profiler active that costs
+one C call.  A span opened ``on_device`` also measures the device's
+time between its entry and its exit (``device_s`` in its dump; see
+``Span.device_s``).  Manually opened spans (``span_open``) cross
+threads and are not bridged.
 """
 from __future__ import annotations
 
@@ -43,6 +52,8 @@ import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import torch
 
 from .perf_counters import perf as _perf
 
@@ -58,6 +69,10 @@ _service: Dict[str, str] = {"name": "client"}
 # so ids come from a per-process RNG (ids carry no schedule state —
 # seeded thrash determinism never reads them)
 _rng = random.Random()
+
+# a span's CUDA timing events are read once, by whichever dump comes
+# first (two threads may dump at once)
+_events_lock = threading.Lock()
 
 
 def enabled() -> bool:
@@ -112,6 +127,10 @@ class Span:
     end: Optional[float] = None
     service: str = "client"      # owning process's entity
     tags: Dict[str, Any] = field(default_factory=dict)
+    device: Optional[str] = None  # the device a span opened on_device
+    #                               measures (see device_s)
+    events: Optional[list] = None  # its CUDA timing events, until read
+    _device_s: Optional[float] = None
 
     def set_tag(self, key: str, value: Any) -> None:
         self.tags[key] = value
@@ -124,14 +143,43 @@ class Span:
         """The (trace_id, span_id) context children link under."""
         return (self.trace_id, self.span_id)
 
+    def device_s(self) -> Optional[float]:
+        """The device's time between the span's entry and its exit, for
+        a span opened ``on_device``; None for any other.
+
+        On a CUDA device it is the current stream's time between two
+        timing events recorded at entry and exit, which the span records
+        only while a profiler is active: the stage's kernels plus any
+        idle inside it (the card waiting for the host to enqueue).  The
+        events are read here, at dump time, never at exit, so a span
+        adds no synchronisation; None when no events were recorded.  On
+        the CPU, torch runs each op before it returns, so it is the
+        span's own duration."""
+        if self.device is None:
+            return None
+        if self.device == "cpu":
+            return self.duration
+        with _events_lock:
+            if self.events is not None and len(self.events) == 2:
+                first, last = self.events
+                last.synchronize()
+                self._device_s = first.elapsed_time(last) / 1e3
+                self.events = None
+            return self._device_s
+
     def dump(self) -> Dict[str, Any]:
-        return {
+        out = {
             "trace_id": self.trace_id, "span_id": self.span_id,
             "parent_id": self.parent_id, "name": self.name,
             "service": self.service, "ts": round(self.ts, 6),
+            # perf_counter at start: orders spans of one process only
+            "t0": self.start,
             "duration_s": round(self.duration or 0.0, 9),
             "tags": self.tags,
         }
+        if self.device is not None:
+            out["device_s"] = self.device_s()
+        return out
 
 
 class _NullSpan:
@@ -168,26 +216,51 @@ class _NullSpanCM:
 _NULL_CM = _NullSpanCM()
 
 
+def _cuda_event(device: str):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 class _SpanCM:
     """Context-managed span: an exception propagating through the
     body finishes the span WITH an ``error`` tag (the leaked-span
     satellite's contract — an abandoned stage must not dump as a
-    mysteriously fast clean stage)."""
+    mysteriously fast clean stage).
 
-    __slots__ = ("_tracer", "span")
+    While a profiler is active the span is also a ``record_function``
+    range of its name, and a span on a CUDA device records a timing
+    event at entry and one at exit on the device's current stream."""
+
+    __slots__ = ("_tracer", "span", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self.span = span
+        self._range = None
 
     def __enter__(self) -> Span:
-        self._tracer._push(self.span)
-        return self.span
+        span = self.span
+        self._tracer._push(span)
+        if torch.autograd._profiler_enabled():
+            self._range = torch.autograd.profiler.record_function(
+                span.name)
+            self._range.__enter__()
+            if span.device is not None and \
+                    span.device.startswith("cuda"):
+                span.events = [_cuda_event(span.device)]
+        return span
 
     def __exit__(self, et, ev, tb):
+        span = self.span
         if et is not None:
-            self.span.tags.setdefault("error", et.__name__)
-        self._tracer._pop_finish(self.span)
+            span.tags.setdefault("error", et.__name__)
+        if self._range is not None:
+            if span.events is not None:
+                span.events.append(_cuda_event(span.device))
+            self._range.__exit__(et, ev, tb)
+            self._range = None
+        self._tracer._pop_finish(span)
         return False
 
 
@@ -232,7 +305,8 @@ class Tracer:
     def _make_span(self, name: str,
                    child_of: Optional[Iterable[int]],
                    tags: Dict[str, Any],
-                   service: Optional[str] = None) -> Span:
+                   service: Optional[str] = None,
+                   on_device=None) -> Span:
         parent = self._current()
         if parent is not None:
             tid, pid = parent.trace_id, parent.span_id
@@ -246,11 +320,13 @@ class Tracer:
                     parent_id=pid, name=name,
                     start=time.perf_counter(), ts=time.time(),
                     service=service or _service["name"],
-                    tags=dict(tags))
+                    tags=dict(tags),
+                    device=None if on_device is None else str(on_device))
 
     def start_span(self, name: str,
                    child_of: Optional[Iterable[int]] = None,
-                   service: Optional[str] = None, **tags):
+                   service: Optional[str] = None, on_device=None,
+                   **tags):
         """Root span, child of the active span on this thread
         (child_span semantics, src/common/tracer.h:10-30), or child
         of a REMOTE parent via ``child_of=(trace_id, span_id)``.
@@ -259,21 +335,24 @@ class Tracer:
         entities (client, every osd.N, the mon), and a span must name
         the entity that EXECUTED the stage, not whoever owns the
         process (which is always "client" in-process).
+        ``on_device`` (a torch device) makes the span measure that
+        device's time too (``Span.device_s``); being a keyword of its
+        own, it is never a tag.
         Disarmed: returns a shared null context manager."""
         if "on" not in _armed:
             return _NULL_CM
         return _SpanCM(self, self._make_span(name, child_of, tags,
-                                             service))
+                                             service, on_device))
 
     def child_span(self, name: str, service: Optional[str] = None,
-                   **tags):
+                   on_device=None, **tags):
         """A span ONLY when a parent is active on this thread (stage
         sites deep in daemons — an untraced op must not spawn orphan
         root spans at every stage it passes)."""
         if "on" not in _armed or self._current() is None:
             return _NULL_CM
         return _SpanCM(self, self._make_span(name, None, tags,
-                                             service))
+                                             service, on_device))
 
     # ----------------------------------------------- manual open/finish --
     def span_open(self, name: str,
@@ -523,7 +602,8 @@ def pin_trace(trace_id) -> None:
         t.pin_trace(int(trace_id))
 
 
-def child_span(name: str, service: Optional[str] = None, **tags):
+def child_span(name: str, service: Optional[str] = None,
+               on_device=None, **tags):
     """Module-level stage-span fast path: one dict-miss when
     disarmed, null when no parent is active (see Tracer.child_span).
     Deep fire sites (scheduler dequeue, store barriers, device
@@ -533,17 +613,19 @@ def child_span(name: str, service: Optional[str] = None, **tags):
     t = _tracer
     if t is None:
         return _NULL_CM
-    return t.child_span(name, service=service, **tags)
+    return t.child_span(name, service=service, on_device=on_device,
+                        **tags)
 
 
 def start_span(name: str, child_of=None,
-               service: Optional[str] = None, **tags):
+               service: Optional[str] = None, on_device=None, **tags):
     """Module-level span fast path: the disarmed case is one
     dict-miss with no singleton lock (fire sites run per op)."""
     if "on" not in _armed:
         return _NULL_CM
     return tracer().start_span(name, child_of=child_of,
-                               service=service, **tags)
+                               service=service, on_device=on_device,
+                               **tags)
 
 
 def linked_span(name: str, child_of,

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..common import tracer as _tracing
 from ..common.options import config as _config
 from ..ops import hashing
 from .crush_map import (
@@ -314,14 +315,16 @@ class _FastChoose:
 
     # ---- candidate grids -------------------------------------------------
     def _descend_grid(self, levels, target_type, x, row0, rvals,
-                      want_leafrow):
+                      want_leafrow, cands):
         """x [N]; row0/rvals [N, K] -> (item, status, leafrow), each
-        [N, K]."""
+        [N, K].  ``cands`` (parent or leaf) tags its span."""
         N, K = rvals.shape
-        xg = x.repeat_interleave(K)
-        item, status, leafrow = _descend_batch(
-            levels, self.dt, target_type, row0.reshape(-1), xg,
-            rvals.reshape(-1), want_leafrow)
+        with _tracing.child_span("crush.fastmap.descend", cands=cands,
+                                 levels=len(levels), on_device=x.device):
+            xg = x.repeat_interleave(K)
+            item, status, leafrow = _descend_batch(
+                levels, self.dt, target_type, row0.reshape(-1), xg,
+                rvals.reshape(-1), want_leafrow)
         return (item.reshape(N, K), status.reshape(N, K),
                 leafrow.reshape(N, K))
 
@@ -334,7 +337,7 @@ class _FastChoose:
                              device=x.device).expand(N, self.R)
         row0 = torch.zeros((N, self.R), dtype=_I64, device=x.device)
         outs = [self._descend_grid(self.levels[g], spec.target_type, x,
-                                   row0, rvals, self.has_leaf)
+                                   row0, rvals, self.has_leaf, "parent")
                 for g in groups]
         return tuple(torch.stack([o[i] for o in outs], dim=1)
                      for i in range(3))
@@ -364,7 +367,7 @@ class _FastChoose:
                     r_leaf = (rep_base + sub_r + ft).expand(N, R)
                     lv = self.leaf_levels[g if self.per_rep else 0]
                     dev, st, _ = self._descend_grid(
-                        lv, 0, x, row0, r_leaf, False)
+                        lv, 0, x, row0, r_leaf, False, "leaf")
                 else:
                     # indep: rep = slot mod numrep; one sub-grid per rep
                     # so each slot gets its rep-dependent r and (P>1) its
@@ -381,7 +384,7 @@ class _FastChoose:
                             .expand(N, len(slots))
                         lv = self.leaf_levels[rep if self.P > 1 else 0]
                         d, s, _ = self._descend_grid(
-                            lv, 0, x, row0[:, sl], r_leaf, False)
+                            lv, 0, x, row0[:, sl], r_leaf, False, "leaf")
                         dev[:, sl] = d
                         st[:, sl] = s
                 gdevs.append(dev)
@@ -397,7 +400,6 @@ class _FastChoose:
         spec = self.spec
         N = x.shape[0]
         p_item, p_status, p_leafrow = self.parent_cands(x)
-        leaf_pack = None
         if spec.leaf:
             if self.has_leaf:
                 l_dev, l_st = self.leaf_cands(x, p_leafrow)
@@ -406,23 +408,28 @@ class _FastChoose:
                 l_dev = torch.full(shape, ITEM_NONE, dtype=_I64,
                                    device=x.device)
                 l_st = torch.full(shape, _SKIP, dtype=_I64, device=x.device)
-            l_out = _is_out(
-                weights, l_dev.reshape(-1),
-                x.repeat_interleave(l_dev.numel() // N)).reshape(l_dev.shape)
-            leaf_pack = (l_dev, l_st, l_out)
-        if spec.target_type == 0:
-            p_out = _is_out(
-                weights, p_item.reshape(-1),
-                x.repeat_interleave(p_item.numel() // N)) \
-                .reshape(p_item.shape)
-        else:
-            p_out = torch.zeros(p_item.shape, dtype=torch.bool,
-                                device=x.device)
-        if spec.firstn:
-            return self._resolve_firstn(p_item, p_status, p_out, leaf_pack,
-                                        count_limit)
-        return self._resolve_indep(p_item, p_status, p_out, leaf_pack,
-                                   count_limit)
+        with _tracing.child_span("crush.fastmap.resolve",
+                                 on_device=x.device):
+            leaf_pack = None
+            if spec.leaf:
+                l_out = _is_out(
+                    weights, l_dev.reshape(-1),
+                    x.repeat_interleave(l_dev.numel() // N)) \
+                    .reshape(l_dev.shape)
+                leaf_pack = (l_dev, l_st, l_out)
+            if spec.target_type == 0:
+                p_out = _is_out(
+                    weights, p_item.reshape(-1),
+                    x.repeat_interleave(p_item.numel() // N)) \
+                    .reshape(p_item.shape)
+            else:
+                p_out = torch.zeros(p_item.shape, dtype=torch.bool,
+                                    device=x.device)
+            if spec.firstn:
+                return self._resolve_firstn(p_item, p_status, p_out,
+                                            leaf_pack, count_limit)
+            return self._resolve_indep(p_item, p_status, p_out, leaf_pack,
+                                       count_limit)
 
     def _leaf_resolve(self, leaf_pack, g, r, out2, outpos, windowed):
         """Walk the leaf retry chain for slot (g, r) against current
@@ -725,11 +732,14 @@ class FastMapper:
                 if pend_out is None:
                     continue
                 vals, count = pend_out
-                for i in range(vals.shape[1]):
-                    ok = (i < count) & (rpos < result_max)
-                    sel = ok[:, None] & (res_ids[None, :] == rpos[:, None])
-                    result = torch.where(sel, vals[:, i:i + 1], result)
-                    rpos = rpos + ok.to(_I64)
+                with _tracing.child_span("crush.fastmap.emit",
+                                         on_device=dev_):
+                    for i in range(vals.shape[1]):
+                        ok = (i < count) & (rpos < result_max)
+                        sel = ok[:, None] & \
+                            (res_ids[None, :] == rpos[:, None])
+                        result = torch.where(sel, vals[:, i:i + 1], result)
+                        rpos = rpos + ok.to(_I64)
                 pend_out = None
         return result, incomplete
 
@@ -786,7 +796,6 @@ class FastMapper:
         w = np.zeros(self.compiled.max_devices, dtype=np.int64)
         w_in = np.asarray(weights, dtype=np.int64)
         w[:min(len(w_in), len(w))] = w_in[:len(w)]
-        w_dev = torch.as_tensor(w, device=self.device)
         xs_np = np.asarray(xs, dtype=np.int64).astype(np.uint32) \
             .astype(np.int64)
         n = len(xs_np)
@@ -800,7 +809,10 @@ class FastMapper:
             cap *= mesh.size
             pad = (-n) % cap if n > cap else (-n) % mesh.size
             xs_np = np.concatenate([xs_np, xs_np[:1].repeat(pad)])
-        x_dev = torch.as_tensor(xs_np, device=self.device)
+        with _tracing.child_span("crush.fastmap.upload",
+                                 on_device=self.device):
+            w_dev = torch.as_tensor(w, device=self.device)
+            x_dev = torch.as_tensor(xs_np, device=self.device)
 
         def cell(block):
             twin = self._on(block.device)
@@ -824,5 +836,9 @@ class FastMapper:
             return out_d, inc_d
         # the one readback of the sweep: results and the incomplete
         # lanes the caller hands to the native mapper
-        return (out_d.cpu().numpy().astype(np.int32),  # noqa: CTL101
-                inc_d.cpu().numpy())  # noqa: CTL101
+        with _tracing.child_span(
+                "crush.fastmap.readback", on_device=self.device,
+                bytes=out_d.numel() * out_d.element_size() +
+                inc_d.numel() * inc_d.element_size()):
+            return (out_d.cpu().numpy().astype(np.int32),  # noqa: CTL101
+                    inc_d.cpu().numpy())  # noqa: CTL101

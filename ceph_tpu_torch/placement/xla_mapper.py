@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..common import tracer as _tracing
 from ..common.op_tracker import mark_active as _mark_active
 from ..common.options import config as _config
 from ..common.perf_counters import perf as _perf
@@ -915,7 +916,8 @@ class XlaMapper:
                         device=self.device)
                 _mark_active("dispatched_device",
                              component="crush.fastmap", lanes=len(xs))
-                with pc.time("fast_map_s"):
+                with pc.time("fast_map_s"), \
+                        _tracing.start_span("crush.fastmap"):
                     out, inc = self._fast.map_batch(
                         ruleno, xs, result_max, weights, mesh=mesh)
                 # inc is fast_mapper's host readback (numpy), not a
@@ -924,8 +926,10 @@ class XlaMapper:
                     rows = np.flatnonzero(inc)
                     pc.inc("fallback_lanes", len(rows))
                     xs_np = np.asarray(xs, dtype=np.int64)[rows]
-                    out[rows] = self._exact_rows(
-                        ruleno, xs_np, result_max, weights)
+                    with _tracing.start_span("crush.native_fallback",
+                                             lanes=len(rows)):
+                        out[rows] = self._exact_rows(
+                            ruleno, xs_np, result_max, weights)
                 return out
             except UnsupportedMapError:
                 self._fast_unsupported.add(fkey)

@@ -1291,3 +1291,55 @@ def test_graph_replay_skips_host_counter(card):
     torch.cuda.synchronize()
     assert counts["calls"] == 1
     assert x.tolist() == [3.0] * 4
+
+
+def test_sweep_spans_time_the_card_by_events(card, monkeypatch):
+    """One sweep of 65,536 PGs on the benchmark's 10,000-OSD map under
+    the profiler: every stage opened on the card records two CUDA
+    timing events and reads its ``device_s`` from them, and the
+    descents, resolve and emit add up to within 10% of the card's busy
+    time in the profiler's trace, less the upload's and readback's
+    copies (the program's device clock against the profiler's)."""
+    import json
+    from pathlib import Path
+
+    from ceph_tpu_torch.cluster.osdmap import (OSDMap, PGPool,
+                                               POOL_REPLICATED)
+    from ceph_tpu_torch.common import tracer as tracing
+    from portbench import flatmap, trace
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench/configs/crush_10k_rep3.json")
+                     .read_text())
+    cmap, _ = flatmap.build(cfg)
+    om = OSDMap(cmap, device=card)
+    om.mark_all_in_up()
+    om.add_pool(PGPool(id=1, name="rep", type=POOL_REPLICATED, size=3,
+                       pg_num=65536, crush_rule=0))
+    om.map_pgs_batch(1)                          # warm up
+    torch.cuda.synchronize()
+    tracing.tracer().reset()
+    made = []
+    real = torch.cuda.Event
+
+    def event(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    om.map_pgs_batch(1)                          # untraced: no event
+    torch.cuda.synchronize()
+    assert not made
+    tracing.tracer().reset()
+    with trace.traced(True, card) as tr:
+        om.map_pgs_batch(1)
+        torch.cuda.synchronize()
+    red = trace.reduce(tr.events)
+    timed = [s for s in tracing.tracer().dump() if "device_s" in s]
+    assert len(made) == 2 * len(timed) > 0
+    assert all(s["device_s"] > 0 for s in timed)
+    staged = sum(s["device_s"] for s in timed if s["name"] in (
+        "crush.fastmap.descend", "crush.fastmap.resolve",
+        "crush.fastmap.emit"))
+    copies = sum(t for n, t in red["kernel_s"].items()
+                 if n.startswith(("Memcpy", "Memset")))
+    busy = red["busy_s"] - copies
+    assert abs(staged - busy) <= 0.1 * busy, (staged, busy, copies)
