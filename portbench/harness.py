@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
-from . import generator, trace
+from . import generator, spans, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ceph_tpu")
 
@@ -100,7 +100,7 @@ def run_cell(root: Path, bench: Dict, workload: str, seed: int,
     build = load(find(root, bench, "systems", cfg["system"] + ".py")).build
     loop_cls = load(find(root, bench, "loops", mix["kind"] + ".py")).Loop
     ctx = loop_cls.control() if control else contextlib.nullcontext()
-    with ctx as control_hooks:
+    with ctx as control_hooks, spans.kept(trace_on):
         return _run(root, bench, workload, cell, cfg, mix, build, loop_cls,
                     seed, seconds, trace_on, device, t_setup,
                     [control_hooks, hooks])

@@ -70,22 +70,19 @@ class Loop(Base):
             self.work["pgs_mapped"] += self.cfg["pg_num"]
 
     def check(self) -> Dict[str, tuple]:
+        """Every lane of every sweep against the reference's map for its
+        epoch: one full map with every host in, and for each host taken
+        out only the lanes whose up set held it (``HostOutMaps``), so
+        the check costs at most ``size`` + 1 full maps, however many
+        sweeps the window held."""
         cfg = self.cfg
-        per = cfg["osds_per_host"]
         x = straw2.pps(cfg["pool_id"], cfg["pg_num"], self.device)
-        ref, draws = {}, {}
-        for host, _ in self.sweeps:
-            if host in ref:
-                continue
-            rw = torch.full((cfg["hosts"] * per,), arith.WEIGHT_IN,
-                            dtype=torch.int64)
-            if host is not None:
-                rw[host * per:(host + 1) * per] = 0
-            ref[host], draws[host] = straw2.map_firstn(
-                x, cfg["hosts"], per, rw, cfg["size"])
+        maps = straw2.HostOutMaps(x, cfg["hosts"], cfg["osds_per_host"],
+                                  cfg["size"], {h for h, _ in self.sweeps
+                                                if h is not None})
         wrong = 0
         for host, up in self.sweeps:
             got = torch.as_tensor(up.astype(np.int64), device=self.device)
-            wrong += int((got != ref[host]).any(1).sum())
-        self.work["draws"] = sum(draws[h] for h, _ in self.sweeps)
+            wrong += int((got != maps.up(host)).any(1).sum())
+        self.work["draws"] = sum(maps.draws(h) for h, _ in self.sweeps)
         return {"wrong_lanes": (wrong, 0), "failed_ops": (self.failed, 0)}

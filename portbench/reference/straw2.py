@@ -107,15 +107,16 @@ def _draw(x, ids, r, weight, ln: torch.Tensor) -> torch.Tensor:
 
 def map_firstn(x: torch.Tensor, hosts: int, per_host: int,
                reweight: torch.Tensor, numrep: int,
-               block: int = 1 << 14, host_ids=None,
-               osd_weights=None) -> Tuple[torch.Tensor, int]:
-    """Up sets [N, numrep] (NONE after the last OSD found) and the number
-    of straw2 draws made, retries included.
+               block: int = 1 << 14, host_ids=None, osd_weights=None,
+               out_host=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up sets [N, numrep] (NONE after the last OSD found) and each
+    lane's number of straw2 draws, retries included [N].
 
     The map is the configuration's unless told otherwise: host h is
     bucket ``host_ids[h]`` (default -1-h) and OSD j of host h has crush
     weight ``osd_weights[h, j]`` (default 0x10000); a host weighs the
-    sum of its OSDs'."""
+    sum of its OSDs'.  ``out_host`` [N], where given, takes lane i's own
+    host ``out_host[i]`` out (reweight 0 for its OSDs; -1: none)."""
     dev = x.device
     ln = torch.as_tensor(_LN, device=dev) - (1 << 48)
     if host_ids is None:
@@ -127,10 +128,15 @@ def map_firstn(x: torch.Tensor, hosts: int, per_host: int,
     osd_w = torch.as_tensor(osd_weights, dtype=torch.int64).to(dev)
     host_w = osd_w.sum(1)
     rw = reweight.to(dev, torch.int64)
-    outs, draws = [], 0
-    for lo in range(0, len(x), block):
+    if out_host is None:
+        out_host = torch.full((len(x),), -1, dtype=torch.int64)
+    out_host = torch.as_tensor(out_host, dtype=torch.int64).to(dev)
+    outs, draws = [], []
+    for lo in range(0, max(len(x), 1), block):    # no lanes: one empty
         xb = x[lo:lo + block].to(torch.int64)
+        ob = out_host[lo:lo + block]
         n = len(xb)
+        nd = torch.zeros(n, dtype=torch.int64, device=dev)
         hosts_out = torch.full((n, numrep), -1, dtype=torch.int64,
                                device=dev)
         leaves = torch.full((n, numrep), NONE, dtype=torch.int64,
@@ -143,13 +149,13 @@ def map_firstn(x: torch.Tensor, hosts: int, per_host: int,
                 xa, r = xb[act], rep + ftotal[act]
                 h = _draw(xa, host_ids.expand(len(act), hosts), r,
                           host_w, ln)
-                draws += len(act) * hosts
+                nd[act] += hosts
                 collide = (hosts_out[act] == h[:, None]).any(1)
                 osd_ids = h[:, None] * per_host + torch.arange(
                     per_host, device=dev)
                 leaf = h * per_host + _draw(xa, osd_ids, r, osd_w[h], ln)
-                draws += int((~collide).sum()) * per_host
-                w = rw[leaf]
+                nd[act[~collide]] += per_host
+                w = torch.where(h == ob[act], 0, rw[leaf])
                 out = (w == 0) | ((w < WEIGHT_ONE) &
                                   ((hash2(xa, leaf) & 0xFFFF) >= w))
                 ok = ~collide & ~out
@@ -160,4 +166,56 @@ def map_firstn(x: torch.Tensor, hosts: int, per_host: int,
                 ftotal[act[~ok]] += 1
                 act = act[~ok & (ftotal[act] < TRIES)]
         outs.append(leaves)
-    return torch.cat(outs), draws
+        draws.append(nd)
+    return torch.cat(outs), torch.cat(draws)
+
+
+class HostOutMaps:
+    """The all-in map and, for each host of ``outs``, the map with that
+    host's OSDs out (reweight 0; every other OSD in), each with its
+    draw count, for the cost of one full map and the lanes that each
+    host touches.
+
+    That is exact.  In the all-in map no draw is rejected as out, and a
+    try that draws host h and collides does so whether h is out or not.
+    So with h out, a lane whose all-in up set holds no OSD of h makes
+    the same draws and comes to the same up set.  Only the lanes whose
+    all-in up set holds an OSD of h are mapped again: every host's in
+    one call, each lane with its own host out.  A lane holds at most
+    ``numrep`` hosts, so that call maps at most ``numrep`` x N lanes,
+    however many hosts are out."""
+
+    def __init__(self, x: torch.Tensor, hosts: int, per_host: int,
+                 numrep: int, outs):
+        rw = torch.full((hosts * per_host,), WEIGHT_ONE, dtype=torch.int64)
+        self.base, self.base_draws = map_firstn(x, hosts, per_host, rw,
+                                                numrep)
+        self.total = int(self.base_draws.sum())
+        held = self.base // per_host          # NONE // per_host is no host
+        lanes = {h: torch.nonzero((held == h).any(1)).flatten()
+                 for h in sorted(set(outs))}
+        none = self.base_draws[:0]            # no lanes, if no host is out
+        up, draws = map_firstn(
+            x[torch.cat([none, *lanes.values()])], hosts, per_host, rw,
+            numrep, out_host=torch.cat(
+                [none, *(torch.full_like(i, h) for h, i in lanes.items())]))
+        sizes = [len(i) for i in lanes.values()]
+        self.patch = {h: p for h, *p in zip(lanes, lanes.values(),
+                                            up.split(sizes),
+                                            draws.split(sizes))}
+
+    def up(self, host) -> torch.Tensor:
+        """Up sets [N, numrep] with ``host`` out (None: all in)."""
+        if host is None:
+            return self.base
+        lanes, up, _ = self.patch[host]
+        out = self.base.clone()
+        out[lanes] = up
+        return out
+
+    def draws(self, host) -> int:
+        """Draws of the whole map with ``host`` out (None: all in)."""
+        if host is None:
+            return self.total
+        lanes, _, d = self.patch[host]
+        return self.total - int(self.base_draws[lanes].sum()) + int(d.sum())

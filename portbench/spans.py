@@ -16,11 +16,34 @@ The window's spans are those that start inside it: after the window's
 start (its last operation's end less its length, which is at most its
 first operation's start) and before its last operation's end; the
 operations' times are ``perf_counter`` too.  A program without such
-spans, or a run without a trace, gives nothing to read.
+spans, or a run without a trace, gives nothing to read.  Through a
+traced run the program's buffer keeps every span (``kept``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
+
+# spans the program's buffer holds through a traced run: its own bound
+# (10,000; it then drops the oldest half) holds some 200 remap sweeps
+KEPT = 10 ** 6
+
+
+@contextlib.contextmanager
+def kept(on: bool):
+    """While ``on``, the program's span buffer keeps every span (up to
+    ``KEPT``), so that the readers sum all of the window's, however
+    many operations it holds; its own bound is restored afterwards."""
+    if not on:
+        yield
+        return
+    from ceph_tpu_torch.common.tracer import tracer
+    buf = tracer()
+    bound, buf.max_spans = buf.max_spans, max(buf.max_spans, KEPT)
+    try:
+        yield
+    finally:
+        buf.max_spans = bound
 
 
 def window(run) -> Optional[List[Dict]]:

@@ -44,7 +44,7 @@ def test_straw2_draws_without_retries():
     x = straw2.pps(1, 64, "cpu")
     rw = torch.full((6,), 0x10000, dtype=torch.int64)
     up, draws = straw2.map_firstn(x, 3, 2, rw, 1)
-    assert draws == 64 * (3 + 2)
+    assert (draws == 3 + 2).all() and len(draws) == 64
     assert (up[:, 0] < 6).all()
 
 
@@ -53,7 +53,7 @@ def test_straw2_draws_every_try_when_all_out():
     x = straw2.pps(1, 16, "cpu")
     up, draws = straw2.map_firstn(x, 1, 2, torch.zeros(2, dtype=torch.int64),
                                   1)
-    assert draws == 16 * 51 * 3
+    assert (draws == 51 * 3).all() and len(draws) == 16
     assert (up == straw2.NONE).all()
 
 

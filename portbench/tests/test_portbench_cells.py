@@ -45,6 +45,23 @@ def test_traced_run_reports_its_layers(workload):
             and "idle" not in n} <= set(out["metrics"])
 
 
+def test_traced_run_keeps_every_span():
+    """A traced run's spans all stay in the program's buffer, however
+    small its own bound, so the span readers sum the whole window; the
+    bound is restored afterwards."""
+    from ceph_tpu_torch.common.tracer import tracer
+    buf = tracer()
+    bound, buf.max_spans = buf.max_spans, 20
+    try:
+        dropped = buf.spans_dropped
+        out = tiny.run("crush_10k_rep3.remap", trace=True)
+        assert buf.spans_dropped == dropped
+        assert len(buf.dump()) > 20 and buf.max_spans == 20
+        assert "descend_device_ms.remap" in out["metrics"]
+    finally:
+        buf.max_spans = bound
+
+
 @pytest.mark.parametrize("workload", CELLS)
 def test_control_is_not_correct(workload):
     out = tiny.control(workload)
@@ -130,6 +147,51 @@ def test_fault_is_not_correct(workload, fault, monkeypatch):
         hooks = remap_fault(fault)
     out = tiny.run(workload, seconds=1.0, hooks=hooks)
     assert not out["correct"], out["checks"]
+
+
+class StaleSweeps:
+    """A sweep that returns at once: the all-in answer, mapped once and
+    then served for every epoch, so each sweep with a host out is stale
+    in the lanes whose up set held that host."""
+
+    def __init__(self):
+        self.loop = self.answer = None
+
+    def __call__(self, loop):
+        real = loop.sys.osdmap.map_pgs_batch
+        self.loop = loop
+
+        def sweep(pool_id, pss=None):
+            if self.answer is None:
+                self.answer = real(pool_id, pss)
+            return self.answer
+        return {"map_pgs_batch": sweep}
+
+
+def test_check_after_many_fast_sweeps_is_bounded(monkeypatch):
+    """However many sweeps the window holds, the check's reference maps
+    at most 4 x pg_num lanes, and still finds every stale lane."""
+    from portbench.reference import straw2
+    cell = "crush_10k_rep3.remap"
+    sound = tiny.run(cell)
+    mapped = []
+    real = straw2.map_firstn
+
+    def counted(x, *a, **kw):
+        mapped.append(len(x))
+        return real(x, *a, **kw)
+    monkeypatch.setattr(straw2, "map_firstn", counted)
+    stale = StaleSweeps()
+    out = tiny.run(cell, hooks=stale)
+    cfg, _ = tiny.CELLS[cell]
+    assert out["attempted"] >= 50 * sound["attempted"]
+    held = stale.answer[0].astype(np.int64) // cfg["osds_per_host"]
+    affected = sum(int((held == h).any(1).sum())
+                   for h, _ in stale.loop.sweeps if h is not None)
+    assert not out["correct"]
+    assert out["checks"]["wrong_lanes"]["value"] == affected > 0
+    assert mapped[0] == cfg["pg_num"]
+    assert sum(mapped) <= 4 * cfg["pg_num"]
 
 
 NEW_LOOP = '''"""Reads of objects drawn from the seed, after set-up wrote them."""

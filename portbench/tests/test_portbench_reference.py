@@ -137,4 +137,54 @@ def test_straw2_matches_the_ports_mapper(outs, partial):
     ref, draws = straw2.map_firstn(straw2.pps(1, N, "cpu"), H, P,
                                    torch.as_tensor(om.osd_weight), 3)
     assert (ref.numpy() == up.astype(np.int64)).all()
-    assert draws >= N * 3 * (H + P)
+    assert (draws >= 3 * (H + P)).all()
+
+
+
+HOSTS, PER, PGS = 50, 5, 2048
+FULL = {}
+
+
+def full_map(host):
+    """The reference run in full over all PGS lanes, ``host`` out (None:
+    all in): up sets and the whole map's draws."""
+    if host not in FULL:
+        rw = torch.full((HOSTS * PER,), straw2.WEIGHT_ONE, dtype=torch.int64)
+        if host is not None:
+            rw[host * PER:(host + 1) * PER] = 0
+        up, draws = straw2.map_firstn(straw2.pps(1, PGS, "cpu"), HOSTS, PER,
+                                      rw, 3)
+        FULL[host] = (up, int(draws.sum()))
+    return FULL[host]
+
+
+@pytest.mark.parametrize("outs", [(), (17,), (3, 41), tuple(range(HOSTS))],
+                         ids=["all_in", "one", "two_in_one_batch", "every"])
+def test_host_out_maps_equal_the_full_map(outs):
+    """One full map with every host in, then only the lanes that each
+    host out touches, gives every state's up sets and draws as the full
+    reference does, integer for integer."""
+    maps = straw2.HostOutMaps(straw2.pps(1, PGS, "cpu"), HOSTS, PER, 3,
+                              outs)
+    for host in (None,) + outs:
+        up, draws = full_map(host)
+        assert torch.equal(maps.up(host), up), host
+        assert maps.draws(host) == draws, host
+    assert sum(len(maps.patch[h][0]) for h in outs) <= 3 * PGS
+
+
+def test_out_host_is_per_lane():
+    """Each lane with its own host out, across blocks, maps as that
+    lane does in its host's full map."""
+    x = straw2.pps(1, PGS, "cpu")
+    owner = torch.arange(PGS) % 7 * 7
+    rw = torch.full((HOSTS * PER,), straw2.WEIGHT_ONE, dtype=torch.int64)
+    up, draws = straw2.map_firstn(x, HOSTS, PER, rw, 3, block=300,
+                                  out_host=owner)
+    for h in owner.unique().tolist():
+        rows = owner == h
+        hw = rw.clone()
+        hw[h * PER:(h + 1) * PER] = 0
+        ref, ref_draws = straw2.map_firstn(x[rows], HOSTS, PER, hw, 3)
+        assert torch.equal(up[rows], ref), h
+        assert torch.equal(draws[rows], ref_draws), h

@@ -9,13 +9,11 @@ harness's spans) that covers its middle, or ``host`` where none does.
 """
 from __future__ import annotations
 
-import bisect
 import contextlib
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
 WINDOW = "portbench.window"
-SCAN = 4096          # host events searched back from a gap's middle
 
 
 def _ns(ev, which: str) -> int:
@@ -102,18 +100,23 @@ def reduce(events) -> Dict:
         t = max(t, b)
     if t < w1:
         gaps.append((t, w1))
+    # one pass: the gaps' middles in time order against the host events
+    # by start; the stack holds the events started so far, and once those
+    # on top that have ended are popped, its top is the latest-started
+    # event still open (an event popped had ended before an earlier
+    # middle, so before every later one too)
     host.sort()
-    starts = [a for a, _, _ in host]
     idle: Dict[str, float] = defaultdict(float)
+    stack: List[Tuple[int, int, str]] = []
+    i = 0
     for a, b in gaps:
         mid = (a + b) // 2
-        i = bisect.bisect_right(starts, mid) - 1
-        name = "host"
-        for j in range(i, max(-1, i - SCAN), -1):
-            if host[j][1] > mid:
-                name = host[j][2]
-                break
-        idle[name] += (b - a) / 1e9
+        while i < len(host) and host[i][0] <= mid:
+            stack.append(host[i])
+            i += 1
+        while stack and stack[-1][1] <= mid:
+            stack.pop()
+        idle[stack[-1][2] if stack else "host"] += (b - a) / 1e9
 
     def top(d):
         return [[n, s] for n, s in sorted(d.items(), key=lambda kv: -kv[1])
