@@ -2,8 +2,11 @@
 
 Port of ``ceph_tpu/placement/fast_mapper.py``.  The mapper is batched
 torch code on the mapper's device (the card unless the caller asks for
-the CPU).  It rests on two facts about the algorithm (reference:
-src/crush/mapper.c:460-843):
+the CPU), but for its descents: on the card each candidate grid's walk
+down the hierarchy is one launch of the hand-written CUDA kernel
+``ops/crush_descend`` (csrc/crush_descend.cu), whose plain version
+``_descend_batch`` runs on the CPU.  It rests on two facts about the
+algorithm (reference: src/crush/mapper.c:460-843):
 
   1. A descent's value depends only on (map, x, r) — collision/out
      rejections affect which descents are *kept*, never what they
@@ -50,7 +53,7 @@ import torch
 from .. import resolve_device
 from ..common import tracer as _tracing
 from ..common.options import config as _config
-from ..ops import hashing
+from ..ops import crush_descend, hashing
 from .crush_map import (
     ITEM_NONE, ITEM_UNDEF,
     RULE_CHOOSELEAF_FIRSTN, RULE_CHOOSELEAF_INDEP, RULE_CHOOSE_FIRSTN,
@@ -66,10 +69,16 @@ from .xla_mapper import (
 _OK, _REJECT, _SKIP = 0, 1, 2
 _I64 = torch.int64
 
-# live [rows, level width] 8-byte buffers of one descent level at its
-# peak: the rjenkins hash chain's five state words plus temporaries, the
-# numerator and the quotient (the lane-chunk budget divides by this)
+# live [rows, level width] 8-byte buffers of one descent level of the
+# plain version at its peak: the rjenkins hash chain's five state words
+# plus temporaries, the numerator and the quotient (the lane-chunk budget
+# divides by this on the CPU)
 _LEVEL_BUFFERS = 8
+# live [rows] 8-byte buffers a grid row holds on the kernel path, which
+# keeps no [rows, width] buffer: the kernel's two inputs and three
+# outputs, the parent and leaf grids kept for the resolve, and the
+# resolve's out test (the rjenkins hash2 chain) over the leaf grid
+_KERNEL_ROW_BUFFERS = 16
 
 
 class UnsupportedRuleError(UnsupportedMapError):
@@ -204,6 +213,26 @@ class _DevLevel:
         return tuple(torch.take_along_dim(t, jj, dim=1)[:, 0] for t in tables)
 
 
+class _Descent:
+    """One descent's level tables for one choose_args position: on the
+    CPU the plain version's ``_DevLevel``s, on a CUDA device the kernel's
+    packed copy (``ops/crush_descend.pack``), packed once here."""
+
+    def __init__(self, hls: List[_HostLevel], pos: int,
+                 device: torch.device):
+        self.widths = [int(h.items.shape[1]) for h in hls]
+        self.levels: List[_DevLevel] = []
+        self.packed = None
+        if device.type == "cuda":
+            self.packed = crush_descend.pack(
+                [(h.items, h.hash_ids,
+                  h.weights[:, min(pos, h.weights.shape[1] - 1), :],
+                  h.sizes, h.child_row, h.child_type, h.child_escape,
+                  h.child_leafrow) for h in hls], device)
+        else:
+            self.levels = [_DevLevel(h, pos, device) for h in hls]
+
+
 # ---------------------------------------------------------------- descent ---
 
 def _descend_batch(levels: List[_DevLevel], dt: DeviceTables,
@@ -295,11 +324,10 @@ class _FastChoose:
             self.rounds = min(spec.tries, max(5, 1 + extra // 2))
             self.R = spec.numrep * self.rounds
         par_pos = list(range(spec.numrep)) if self.per_rep else [0]
-        self.levels = {p: [_DevLevel(h, p, device) for h in levels_h]
-                       for p in par_pos}
+        self.levels = {p: _Descent(levels_h, p, device) for p in par_pos}
         # leaf positions: firstn uses pos=outpos (grid: rep or 0); indep
         # leaf uses pos=rep — per-rep tables only needed when P>1
-        self.leaf_levels: Dict[int, list] = {}
+        self.leaf_levels: Dict[int, _Descent] = {}
         self.has_leaf = bool(spec.leaf and leaf_class)
         if self.has_leaf:
             lh, sub = _build_levels(cmap, cm, leaf_class, 0)
@@ -310,21 +338,33 @@ class _FastChoose:
                 leaf_pos = par_pos
             else:
                 leaf_pos = list(range(spec.numrep)) if self.P > 1 else [0]
-            self.leaf_levels = {
-                p: [_DevLevel(h, p, device) for h in lh] for p in leaf_pos}
+            self.leaf_levels = {p: _Descent(lh, p, device)
+                                for p in leaf_pos}
 
     # ---- candidate grids -------------------------------------------------
-    def _descend_grid(self, levels, target_type, x, row0, rvals,
+    def _descend_grid(self, descent: _Descent, target_type, x, row0, rvals,
                       want_leafrow, cands):
         """x [N]; row0/rvals [N, K] -> (item, status, leafrow), each
-        [N, K].  ``cands`` (parent or leaf) tags its span."""
+        [N, K].  ``cands`` (parent or leaf) tags its span.  A CUDA tensor
+        launches the descent kernel, a CPU tensor runs the plain version
+        ``_descend_batch``."""
         N, K = rvals.shape
+        kind = x.device.type
+        if kind not in ("cuda", "cpu"):
+            raise ValueError(f"the descent has no path for {x.device}")
         with _tracing.child_span("crush.fastmap.descend", cands=cands,
-                                 levels=len(levels), on_device=x.device):
+                                 levels=len(descent.widths),
+                                 on_device=x.device):
+            if kind == "cuda":
+                return crush_descend.descend(
+                    descent.packed, self.dt.numer_lut, x,
+                    row0.contiguous(), rvals.contiguous(), target_type,
+                    want_leafrow)
             xg = x.repeat_interleave(K)
             item, status, leafrow = _descend_batch(
-                levels, self.dt, target_type, row0.reshape(-1), xg,
+                descent.levels, self.dt, target_type, row0.reshape(-1), xg,
                 rvals.reshape(-1), want_leafrow)
+            crush_descend.count_torch_rows(N * K)
         return (item.reshape(N, K), status.reshape(N, K),
                 leafrow.reshape(N, K))
 
@@ -757,24 +797,27 @@ class FastMapper:
             if e[0] != "choose":
                 continue
             fc: _FastChoose = e[1]
-            for levels in list(fc.levels.values()) + \
+            for d in list(fc.levels.values()) + \
                     list(fc.leaf_levels.values()):
-                for lvl in levels:
-                    width = max(width, lvl.Sl)
+                width = max([width] + d.widths)
         return width
 
     def chunk_lanes(self, ruleno: int, result_max: int) -> int:
         """Lanes per dispatch: candidate grids multiply lane width by
-        R*G, and each level keeps ~_LEVEL_BUFFERS [rows, S] 8-byte
-        buffers live, so lanes are capped to keep rows*S inside the
-        ``fastmap_max_grid_mib`` budget."""
+        R*G, capped at ``fastmap_max_grid_lanes`` rows, and the rows'
+        live buffers must fit the ``fastmap_max_grid_mib`` budget.  The
+        plain version (the CPU) keeps ~_LEVEL_BUFFERS [rows, S] 8-byte
+        buffers a level, the kernel path (a CUDA device) only
+        _KERNEL_ROW_BUFFERS [rows] ones."""
         gw = self.grid_width(ruleno, result_max)
         max_grid = int(_config().get("fastmap_max_grid_lanes"))
-        budget_rows_s = int(_config().get("fastmap_max_grid_mib")) \
-            * (1 << 20) // (8 * _LEVEL_BUFFERS)
-        width = self.max_level_width(ruleno, result_max)
-        return max(1 << 10, min(max_grid // gw,
-                                budget_rows_s // (gw * width)))
+        budget = int(_config().get("fastmap_max_grid_mib")) * (1 << 20)
+        if self.device.type == "cuda":
+            per_row = 8 * _KERNEL_ROW_BUFFERS
+        else:
+            per_row = 8 * _LEVEL_BUFFERS * \
+                self.max_level_width(ruleno, result_max)
+        return max(1 << 10, min(max_grid // gw, budget // (per_row * gw)))
 
     def map_batch(self, ruleno: int, xs, result_max: int,
                   weights: Sequence[int], mesh=None, readback: bool = True):

@@ -14,7 +14,8 @@ batched torch programs that map millions of PG ids at once:
     to keep gathers off the TPU's matrix unit and is not ported).  The
     exact straw2 draw numerator is an index into the 65,536-entry table.
   * ``XlaMapper.map_batch`` dispatches to the level-synchronous
-    FastMapper (fast_mapper.py) first, as the reference does; lanes it
+    FastMapper (fast_mapper.py) first, as the reference does (on the card
+    its descents run in the hand-written kernel ops/crush_descend); lanes it
     flags incomplete are recomputed exactly on the host by the native C++
     mapper, or else the scalar mapper — the reference's own design,
     counted in ``perf("crush.mapper")`` ``fallback_lanes``.

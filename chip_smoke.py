@@ -53,6 +53,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      written with ``CrushMap.to_spec``, two 3-replica pools of 131,072
      PGs: every up set and primary against the native mapper, the
      printed avg / min / max against a NumPy count of the native rows;
+     every descent of 4 and 4b on the descent kernel;
   5. general placement, the per-lane mapper outside the fast subset: a
      10,000-OSD map made before straw2 (25 racks x 40 hosts x 10 OSDs,
      every bucket ``alg straw``, straw_calc_version 1, the hammer
@@ -114,7 +115,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      CUDA events (host work included); each kernel also beside its
      launch floor, an empty kernel at the kernel's grid and shared
      memory replayed the same way (K1 also at phase 13's most-launched
-     4 KiB shapes; K3 at its pool and its three crc-leg frames);
+     4 KiB shapes; K3 at its pool and its three crc-leg frames); the
+     descent kernel at the remap cell's two launches (262,144 PGs on
+     phase 4's map), held bit for bit to its plain version with the
+     lanes a row the whole launch takes, then every launch of a
+     monitor's map of a 4,096-, 32,768- and 65,536-PG pool on that map
+     and of phase 11's two pools at each of its 1, 4 and 32 lanes a
+     row, each equal to a thread a row, beside the one it picks;
  10. the process cluster (bench.py's ``bench_process_cluster``):
      ``tools/vstart`` starts one mon, then 12 OSD daemon processes
      together (``start(..., together=True)``), each
@@ -242,9 +249,11 @@ and no plain version may run; the steps of the tools read their counts
 the same way (8b: K1 equal to each cell's bitsliced ``ec.jax`` and
 bitmatrix dispatches, K2 to its byte-layout ones).  After phases 8, 10,
 11, 13 and 14 the smoke fails if a step launched a kernel at a shape
-phase 2 did not hold.  The placement phases 4 and 5 (4b and 5b too) and phase
-12's sweep run no kernel; phase 5 and phase 12's sweep fail if a count
-moves.  Earlier lines print
+phase 2 did not hold.  The fast mapper's descents in phases 4 and 4b and
+phase 12's sweep run on the descent kernel (``ops/crush_descend``), and
+those phases fail if it did not launch or its plain version served a row;
+phase 5 (the general mapper) and 5b launch no kernel of any kind.  Phase 5
+and phase 12's sweep fail if another kernel's count moves.  Earlier lines print
 the card (``nvidia-smi --query-gpu=name,power.limit``), the numbers as
 JSON, and the ``{"kernels": [...]}`` line; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -275,8 +284,8 @@ from ceph_tpu_torch.cluster.ec_backend import ECBackend, ObjectGeom, ShardIO
 from ceph_tpu_torch.ec import bitmatrix_codec, instance
 from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.common.perf_counters import perf
-from ceph_tpu_torch.ops import (_build, crc32_gf2, gf, gf2, gf_jax, gf_pallas,
-                                ragged_fused, xor_kernel)
+from ceph_tpu_torch.ops import (_build, crc32_gf2, crush_descend, gf, gf2,
+                                gf_jax, gf_pallas, ragged_fused, xor_kernel)
 
 SEED = 20261016
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -779,6 +788,23 @@ def sweep_map(device, n_pgs: int):
     return cmap, om
 
 
+def descent_counts() -> tuple:
+    """(descent kernel launches, rows it served, rows the plain version
+    served)."""
+    return (crush_descend.launches, crush_descend.descend_kernel_rows,
+            crush_descend.descend_torch_rows)
+
+
+def descent_delta(d0: tuple, where: str) -> tuple:
+    """The descent counts since ``d0``; fails unless the kernel launched
+    and the plain version served no row."""
+    d = tuple(b - a for a, b in zip(d0, descent_counts()))
+    if d[0] <= 0 or d[1] <= 0 or d[2]:
+        fail(f"{where}: the descent kernel launched {d[0]} times for "
+             f"{d[1]} rows; its plain version served {d[2]} rows")
+    return d
+
+
 def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
     """BASELINE configs #3 and #5 on the port: map every PG of a 2^20-PG
     pool on the 10,000-OSD map, mark ``n_out`` OSDs out, remap through
@@ -796,6 +822,7 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
         return pc.dump().get("fallback_lanes", 0)
 
     torch.cuda.reset_peak_memory_stats()
+    d0 = descent_counts()
     f0 = fallback()
     t0 = time.perf_counter()
     up0, _ = om.map_pgs_batch(1)
@@ -837,6 +864,7 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
     if np.isin(up1, outs).any():
         fail("placement: an out OSD kept a PG")
     moved = int((up1 != up0).any(axis=1).sum())
+    descent = descent_delta(d0, "placement")
     return {"osds": cmap.max_devices, "hosts": 1000, "pgs": n_pgs,
             "replicas": 3, "out_osds": n_out,
             "map_pgs_batch_s": t_full0, "remap_map_pgs_batch_s": t_full1,
@@ -850,6 +878,7 @@ def placement_sweep(device, n_pgs: int = 1 << 20, n_out: int = 100) -> dict:
             "native_s": t_native0 + t_native1,
             "native_threads": os.cpu_count(),
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "descent_launches": descent[0], "descent_kernel_rows": descent[1],
             "_up0": up0, "_cmap": cmap}
 
 
@@ -994,7 +1023,8 @@ def general_placement(device, n_pgs: int = 1 << 20,
     nm = NativeMapper(cmap)
     f0, u0, g0 = stat("fallback_lanes"), stat("fast_unsupported_rules"), \
         stat("general_map_s")
-    k0 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches)
+    k0 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches,
+          descent_counts())
     torch.cuda.reset_peak_memory_stats()
     times, native_s, ups = {}, 0.0, {}
     pps = {pid: om.pools[pid].raw_pg_to_pps_batch(np.arange(n_pgs))
@@ -1063,7 +1093,8 @@ def general_placement(device, n_pgs: int = 1 << 20,
                      "from the native mapper")
             legacy[f"{name}/rule{ruleno}"] = dt_s
 
-    k1 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches)
+    k1 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches,
+          descent_counts())
     fallback = stat("fallback_lanes") - f0
     unsupported = stat("fast_unsupported_rules") - u0
     general_s = stat("general_map_s") - g0
@@ -1647,6 +1678,193 @@ def time_k3(main_pool: np.ndarray, mean_frame_blocks: int, device,
               "lookups_ms": ops / SMEM_LOOKUPS_PER_S * 1e3,
               "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
               "roofline_share": bound_ms / ms, "gpu": card})
+    return out
+
+
+# ------------------------------------------------------ descent kernel --
+
+DRAW_OPS = 2 + 5 * 9 * 3       # hash3's integer instructions a draw
+LN_TABLE_BYTES = 65536 * 8     # the float64 crush_ln numerator table
+# pools whose descents have too few rows to fill the card with a thread a
+# row (2,048 threads an SM): a monitor's map of a 4,096- and a 32,768-PG
+# pool on phase 4's map, and a 65,536-PG one that fills it
+GROUP_POOLS = (4096, 32768, 65536)
+
+
+def record_descents(fn) -> list:
+    """Run ``fn()`` and return the arguments of each descent launch it
+    made, in order."""
+    calls = []
+    real = crush_descend.descend
+
+    def record(*a, **kw):
+        calls.append(a)
+        return real(*a, **kw)
+
+    crush_descend.descend = record
+    try:
+        fn()
+    finally:
+        crush_descend.descend = real
+    return calls
+
+
+def descend_shapes(device, n_pgs: int = 262144) -> dict:
+    """The remap cell's two descent launches, recorded from one
+    ``map_pgs_batch`` over phase 4's map with ``n_pgs`` PGs: the root
+    level (one row of 1,000 hosts) at [n_pgs, 7] and the host level
+    (1,000 rows of 10 OSDs) at [n_pgs, 7].  name -> the launch's
+    arguments."""
+    _, om = sweep_map(device, n_pgs)
+    calls = record_descents(lambda: om.map_pgs_batch(1))
+    if len(calls) != 2:
+        fail(f"descent timing: the sweep made {len(calls)} launches, not 2")
+    return {"root_level": calls[0], "host_level": calls[1]}
+
+
+def descend_bound(tabs, row0):
+    """(bound_ms, bound_by, draws) of one launch of single-level
+    descents: every live row draws each item of its row (all weights
+    are positive on phase 4's map)."""
+    if tabs.n_levels != 1:
+        fail("descent timing: the bound counts single-level descents")
+    draws = int((row0 >= 0).sum()) * tabs.max_width
+    t_ops = draws * DRAW_OPS / INT32_OPS_PER_S * 1e3
+    t_bytes = LN_TABLE_BYTES / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "ops", draws) if t_ops >= t_bytes else \
+        (t_bytes, "bytes", draws)
+
+
+def time_descend(shapes: dict, card: str) -> dict:
+    """The descent kernel at each recorded launch: device time by CUDA
+    graph replay, call time, the launch floor (an empty kernel at the
+    same grid and shared memory) and the plain version on the card, the
+    kernel held to it bit for bit with the lanes a row the whole launch
+    takes."""
+    from ceph_tpu_torch.placement import fast_mapper
+    out = {}
+    for name, args in shapes.items():
+        tabs, numer, x, row0, r, target, want = args
+        N, K = row0.shape
+        group = crush_descend.group_for(tabs, N * K)
+        n0 = crush_descend.launches
+        ms = graph_ms(lambda: crush_descend.descend(*args), iters=10)
+        call_ms = cuda_ms(lambda: crush_descend.descend(*args), iters=10)
+        if crush_descend.launches - n0 != 2 + 10 + 2 + 10:
+            fail("descent timing: a wrapper call did not launch the kernel")
+        floor_ms = graph_ms(lambda: crush_descend.descend_floor(tabs, N, K),
+                            iters=50)
+        bound_ms, bound_by, draws = descend_bound(tabs, row0)
+        plain_ms = plain_descend_ms(fast_mapper, tabs, args, group)
+        out[name] = {"ms": ms, "call_ms": call_ms, "floor_ms": floor_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        emit({"phase": "timing", "kernel": "crush_descend", "shape": name,
+              "grid": [N, K], "levels": tabs.n_levels,
+              "width": tabs.max_width, "group": group, "ms": ms,
+              "call_ms": call_ms, "floor_ms": floor_ms,
+              "plain_ms": plain_ms, "draws": draws,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "roofline_share": bound_ms / ms, "gpu": card,
+              "ptxas": _build.build_log.get("crush_descend", {})
+              .get("ptxas")})
+    return out
+
+
+def plain_descend_ms(fast_mapper, tabs, args, group: int,
+                     lanes: int = 28760) -> float:
+    """The plain version on the card over the same launch, from the
+    packed tables decoded back to its level tables (one level): its time
+    over the first ``lanes`` lanes (the chunk its [rows, width] buffers
+    allow on the remap map), scaled to the launch's, and the kernel,
+    launched with ``group`` lanes a row, held to it there."""
+    _, numer, x, row0, r, target, want = args
+    N, K = row0.shape
+    n = min(N, lanes)
+    x, row0, r = x[:n], row0[:n].contiguous(), r[:n].contiguous()
+    hot = tabs.items.cpu().numpy()
+    cold = tabs.children.cpu().numpy()
+    rows, width = int(tabs.desc[0, 2]), int(tabs.desc[0, 3])
+    lv = fast_mapper._HostLevel(
+        bucket_ids=[], items=cold[:, 0].reshape(rows, width),
+        hash_ids=(hot[:, 0] & 0xFFFFFFFF).astype(np.uint32)
+        .astype(np.int32).reshape(rows, width),
+        weights=(hot[:, 0] >> 32).astype(np.int32).reshape(rows, 1, width),
+        sizes=tabs.sizes.cpu().numpy(),
+        child_row=cold[:, 2].reshape(rows, width),
+        child_type=(cold[:, 1] & ~crush_descend.ESCAPE).reshape(rows, width),
+        child_escape=((cold[:, 1] & crush_descend.ESCAPE) != 0)
+        .reshape(rows, width),
+        child_leafrow=cold[:, 3].reshape(rows, width))
+    levels = [fast_mapper._DevLevel(lv, 0, x.device)]
+
+    class Tables:
+        numer_lut = numer
+
+        @staticmethod
+        def ln_numer(u):
+            return numer[u]
+
+    got = []
+
+    def plain():
+        got[:] = fast_mapper._descend_batch(
+            levels, Tables, target, row0.reshape(-1),
+            x.repeat_interleave(K), r.reshape(-1), want)
+
+    ms = cuda_ms(plain, iters=1, warmup=1)
+    kern = crush_descend.descend(tabs, numer, x, row0, r, target, want,
+                                 group=group)
+    if not all(torch.equal(a.reshape(-1), b) for a, b in zip(kern, got)):
+        fail("descent timing: the kernel differs from its plain version")
+    return ms * N / n
+
+
+def group_callers(device) -> dict:
+    """The descent launches of the fast mapper's callers on the card at
+    grids of every size: a monitor's map of each ``GROUP_POOLS`` pool on
+    phase 4's map, and phase 11's two pools (3-replica and RS(8,3)
+    CHOOSELEAF_INDEP) on its 32 x 4 map.  name -> the launch's
+    arguments."""
+    out = {}
+    for n_pgs in GROUP_POOLS:
+        _, om = sweep_map(device, n_pgs)
+        for i, a in enumerate(record_descents(lambda: om.map_pgs_batch(1))):
+            out[f"10k_rep3_{n_pgs}.{i}"] = a
+    om = p11_osdmap(device)
+    for pool, name in ((1, f"32x4_rep3_{P11_REP_PGS}"),
+                       (2, f"32x4_ec{K}{M}_{P11_EC_PGS}")):
+        for i, a in enumerate(record_descents(
+                lambda: om.map_pgs_batch(pool))):
+            out[f"{name}.{i}"] = a
+    return out
+
+
+def time_groups(shapes: dict, card: str) -> dict:
+    """Each launch at every lanes-a-row the kernel is built for (CUDA
+    graph replay), every one equal to the thread-a-row launch bit for
+    bit, beside the one the launch picks.  name -> {group: ms}."""
+    out = {}
+    for name, args in shapes.items():
+        tabs, row0 = args[0], args[3]
+        N, K = row0.shape
+        want = crush_descend.descend(*args, group=1)
+        ms = {}
+        for g in crush_descend.GROUPS:
+            got = crush_descend.descend(*args, group=g)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"descent groups: {name} at {g} lanes a row differs "
+                     f"from a thread a row")
+            ms[g] = graph_ms(lambda: crush_descend.descend(*args, group=g),
+                             iters=10)
+        picked = crush_descend.group_for(tabs, N * K)
+        best = min(ms, key=ms.get)
+        out[name] = ms
+        emit({"phase": "timing", "kernel": "crush_descend_groups",
+              "shape": name, "grid": [N, K], "width": tabs.max_width,
+              "ms": {str(g): v for g, v in ms.items()}, "picked": picked,
+              "fastest": best, "picked_over_fastest": ms[picked] / ms[best],
+              "gpu": card})
     return out
 
 
@@ -2963,12 +3181,14 @@ def p12_steps(device, card: str, gen) -> dict:
 def p12_sweep(device, card: str, up0: np.ndarray) -> dict:
     """(d) phase 4's 2^20-PG sweep through ``map_pgs_batch`` with the
     plane's 4-cell mesh: equal to phase 4's sweep without one, every cell
-    mapping a quarter of the lanes, no kernel launched."""
+    mapping a quarter of the lanes on the descent kernel, no other kernel
+    launched."""
     from ceph_tpu_torch import entry
     n_pgs = int(up0.shape[0])
     _, om = sweep_map(device, n_pgs)
     perf("dataplane").reset()
     k0 = (xor_kernel.launches, gf_pallas.launches, gf_pallas.fused_launches)
+    d0 = descent_counts()
     with entry.plane_cells(P12_CELLS, 0, device):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2983,7 +3203,9 @@ def p12_sweep(device, card: str, up0: np.ndarray) -> dict:
             xor_kernel.launches, gf_pallas.launches,
             gf_pallas.fused_launches):
         fail(f"phase 12 sweep: cell lanes {lanes}, or a kernel launched")
+    descent = descent_delta(d0, "phase 12 sweep")
     res = {"pgs": n_pgs, "map_pgs_batch_s": wall, "cell_lanes": lanes,
+           "descent_launches": descent[0],
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     emit({"phase": "p12_sweep", **res, "gpu": card})
     return res
@@ -3596,6 +3818,7 @@ def tools_osdmaptool(device, card: str, cmap) -> dict:
         json.dump(spec, f)
     maps = []
     c0 = step_counts()
+    d0 = descent_counts()
     sync(device)
     t0 = time.perf_counter()
     with returns_of(OSDMap, "map_pgs_batch", maps):
@@ -3607,6 +3830,7 @@ def tools_osdmaptool(device, card: str, cmap) -> dict:
         fail(f"4b osdmaptool: exit {rc}, {len(maps)} pool sweeps")
     if step_counts() != c0:
         fail("4b osdmaptool: a kernel or a plain version ran on placement")
+    descent = descent_delta(d0, "4b osdmaptool")
     om = osdmaptool.load_cluster(spec, device="cpu")
     nm = NativeMapper(cmap)
     weights = om.osd_weight[:cmap.max_devices].copy()
@@ -3631,8 +3855,8 @@ def tools_osdmaptool(device, card: str, cmap) -> dict:
     return {"pools": 2, "pgs": 2 * T4_PGS, "osds": cmap.max_devices,
             "stdout": out.splitlines(), "pg_per_s": pgs_s,
             "tool_wall_s": wall, "native_s": native_s,
-            "native_lanes_checked": 2 * T4_PGS, "launches": {},
-            "gpu": card}
+            "native_lanes_checked": 2 * T4_PGS,
+            "launches": {"descend": descent[0]}, "gpu": card}
 
 
 def tools_crushtool(device, card: str, text: str) -> dict:
@@ -3655,6 +3879,7 @@ def tools_crushtool(device, card: str, text: str) -> dict:
     f0 = pc.dump().get("fallback_lanes", 0)
     rows = []
     c0 = step_counts()
+    d0 = descent_counts()
     sync(device)
     t0 = time.perf_counter()
     with returns_of(XlaMapper, "map_batch", rows):
@@ -3669,7 +3894,7 @@ def tools_crushtool(device, card: str, text: str) -> dict:
         fail(f"5b crushtool: exit {rc}, {len(rows)} sweeps")
     if fallback:
         fail(f"5b crushtool: {fallback} lanes went to the host")
-    if step_counts() != c0:
+    if step_counts() != c0 or descent_counts() != d0:
         fail("5b crushtool: a kernel or a plain version ran on placement")
     cmap = compile_crushmap(text)
     t0 = time.perf_counter()
@@ -4423,7 +4648,7 @@ def main() -> int:
         fail(f"K1 launched {k1_slice} times on the main path; the path "
              f"makes {path['dispatches']} dispatches")
 
-    # 4. the placement sweep (no kernel: batched torch on the card)
+    # 4. the placement sweep (the descent kernel and batched torch)
     sweep = placement_sweep(device)
     sweep_up0 = sweep.pop("_up0")
     sweep_cmap = sweep.pop("_cmap")
@@ -4500,6 +4725,11 @@ def main() -> int:
                                 zw["device_crc_dispatches"]), device, card)
     enc1, enc2, full3 = t1["encode"], t2["encode"], t3["full_pool"]
     torch.cuda.empty_cache()
+    n9 = crush_descend.launches
+    root9 = time_descend(descend_shapes(device), card)["root_level"]
+    time_groups(group_callers(device), card)
+    n9 = crush_descend.launches - n9
+    torch.cuda.empty_cache()
 
     # 10. the process cluster: daemons on the CPU, the client on the card
     # (its counts are read around each step inside)
@@ -4548,7 +4778,7 @@ def main() -> int:
     p12c = p12_cluster(device, card)
     p12r = p12_ragged(device, card, zw_pool)
     p12s = p12_steps(device, card, gen)
-    p12_sweep(device, card, sweep_up0)
+    p12d = p12_sweep(device, card, sweep_up0)
     p12_nccl(device, card, gen)
     emit({"phase": "p12_total", "s": time.perf_counter() - t12, "gpu": card})
     torch.cuda.empty_cache()
@@ -4636,6 +4866,17 @@ def main() -> int:
          "max_abs_err": max(errs3.values()),
          "ms": full3["ms"], "plain_ms": full3["plain_ms"],
          "bound_ms": full3["bound_ms"], "bound_by": full3["bound_by"],
+         "library_ms": None},
+        {"name": "crush_descend", "route": "cuda",
+         "source": "ceph_tpu_torch/csrc/crush_descend.cu",
+         "replaces": "ceph_tpu/placement/fast_mapper.py:438",
+         "launches": crush_descend.launches - n9,
+         "launches_by_phase": {"4": sweep["descent_launches"],
+                               "4b": t4["launches"]["descend"],
+                               "12": p12d["descent_launches"]},
+         "max_abs_err": 0,
+         "ms": root9["ms"], "plain_ms": root9["plain_ms"],
+         "bound_ms": root9["bound_ms"], "bound_by": root9["bound_by"],
          "library_ms": None}]})
     emit({"phase": "total", "s": time.perf_counter() - t_start,
           "gpu": card})

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Time kernel K1, K2 or K3 of one or more checkouts of the port on one card.
+"""Time one kernel of the port (K1, K2, K3 or the descent) on one card.
 
-    python3 kernel_timing.py --kernel k1|k2|k3 [--tree DIR ...] [--out FILE]
+    python3 kernel_timing.py --kernel k1|k2|k3|descend [--tree DIR ...]
+        [--out FILE]
 
 Each ``--tree`` (default: this checkout) is a root holding
 ``ceph_tpu_torch/``; each is timed in its own process, in the order
 given, so a change and its parent compare on one card within one call
 (give them as parent, change, change, parent).  Each process builds the
 kernel from its tree's ``csrc/`` and runs this checkout's
-``chip_smoke.time_k1``, ``time_k2`` or ``time_k3`` against that tree's
-package:
+``chip_smoke.time_k1``, ``time_k2``, ``time_k3`` or ``time_descend``
+against that tree's package:
 
   * k1: K1 at ``chip_smoke.K1_TIMED``: the encode, decode and rebuild
     at 128 KiB stripe units, the liber8tion and liberation encodes, the
@@ -26,7 +27,17 @@ package:
     2 MiB frame, at the path's mean verified frame (70 blocks) and at the
     process cluster's flush batch, with its launch floor (an empty kernel
     at K3's grid and shared memory) where the tree's package has the
-    floor entry point.
+    floor entry point;
+  * descend: the fast mapper's descent kernel at the remap cell's two
+    launches (262,144 PGs on the 1,000-host map: the root level of 1,000
+    hosts and the host level of 10 OSDs, each at [262,144, 7] rows),
+    with its launch floor, the plain version on the card over the same
+    launch, its ptxas registers and spills (when this process built it),
+    and the least time of its draws x 137 integer instructions at the
+    card's integer rate, or of the 512 KiB numerator table at HBM rate
+    if larger; then every launch of smaller pools' maps
+    (``chip_smoke.group_callers``) at each lanes-a-row the kernel is
+    built for, beside the one it picks.
 
 Device time by CUDA-graph replay and call time between CUDA events,
 beside the bound and the plain version.  One JSON line per tree and
@@ -79,14 +90,19 @@ def _one(kernel: str, tree: str, out_path: str) -> None:
     elif kernel == "k2":
         gen = torch.Generator(device=device).manual_seed(smoke.SEED)
         smoke.time_k2(smoke.k2_shapes(device, gen), smoke.gpu_line())
-    else:
+    elif kernel == "k3":
         pool = ragged_fused.pack(smoke.zerowire_shards()).pool
         smoke.time_k3(pool, MEAN_FRAME_BLOCKS, device, smoke.gpu_line())
+    else:
+        card = smoke.gpu_line()
+        smoke.time_descend(smoke.descend_shapes(device), card)
+        smoke.time_groups(smoke.group_callers(device), card)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "descend"),
+                    required=True)
     ap.add_argument("--tree", action="append",
                     help="checkout root to time (repeatable, in order)")
     ap.add_argument("--out", default="", help="also append the lines here")
